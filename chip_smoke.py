@@ -6,15 +6,31 @@ raises and the script exits non-zero:
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one ``nvcc`` per source, started together);
-2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (ogbn-arxiv, 170,000 vertices, bm = bk = 16, N = 128)
-   and at edge shapes, with its time, the plain version's, the bound, and
-   one library call's as a yardstick (never used by the port);
-3. drive the main path: DYPE-scheduled 2-layer GCN serving on ogbn-arxiv at
+2. hold the blocked-ELL SpMM kernel against its plain PyTorch version on
+   the card, at the GCN path's shapes (ogbn-arxiv, 170,000 vertices,
+   bm = bk = 16, N = 128) and at edge shapes, with its time, the plain
+   version's, the bound, and one library call's as a yardstick (never used
+   by the port);
+3. drive the GCN path: DYPE-scheduled 2-layer GCN serving on ogbn-arxiv at
    full size, 8 requests through the 4-stage pipeline, with the launch
    counters set to 0 just before and read just after;
 4. check the served output against a CPU computation of the same GCN on the
-   same inputs.
+   same inputs;
+5. hold the banded SWA kernel against its plain version at the prefill
+   path's shape (q (2, 32, 16384, 128), k/v (2, 8, 16384, 128), window
+   4096, read in place from (B, S, H, D) activations; float32, then bf16)
+   and at edge shapes (S, window, D, GQA group, float32 and bf16), with
+   the same numbers; the yardstick is PyTorch's memory-efficient SDPA with
+   the band as a mask;
+6. drive the SWA prefill path: qwen3-4b with sliding-window attention
+   (window 4096) at full width and depth, 2 requests x 16,384 tokens,
+   launch counters set to 0 just before and read just after (36 launches);
+7. check the served prefill against the plain attention: rerun the served
+   forward with every kernel call also computed by the plain version on
+   the same inputs and held to it (one bf16 ulp), which must give the
+   served logits bit for bit; then run a float32 copy of the model with
+   the kernel and with the plain attention, whose logits must agree to
+   1e-4 of the largest and give the same greedy tokens.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -23,14 +39,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
 """
 import json
 import subprocess
+from unittest import mock
 import sys
 import time
 from pathlib import Path
 
 ATOL = RTOL = 1e-4        # kernel vs plain version, float32 (sum order)
 GCN_MAX_ERR = 1e-3        # served GCN vs a plain GCN (examples/serve_pipeline.py)
+# SWA kernel vs plain version, (atol, rtol). Both compute in float32 and
+# round the output to the input type once, so a bf16 output may differ by
+# one bf16 ulp (at most 2**-7 of the value) and float32 sum-order noise;
+# float32 keeps tests/test_kernels.py's 2e-5. (That file's bf16 2e-2 is
+# as large as a typical output at the prefill shape, so it is used only
+# for the library yardstick, which rounds p to bf16.)
+SWA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2 ** -7)}
+YARDSTICK_TOL = 2e-2
+# a float32 copy of the prefill model, kernel vs plain attention: the
+# largest logit difference as a share of the largest logit
+FP32_LOGITS_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12              # H100 SXM, fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12             # H100 SXM, dense bf16 tensor cores
+PREFILL = {"arch": "qwen3-4b", "batch": 2, "prompt_len": 16384}
 
 
 def phase(name):
@@ -109,6 +139,107 @@ def check_spmm(label, a, x, *, time_it=False, csr=None):
     return row
 
 
+def swa_bound(B, H, KV, S, D, window, esize):
+    """Least time for the banded attention on these shapes: q, k, v read
+    once and o written once, against the q.k and p.v products of the
+    in-band (row, key) pairs only, at the dense bf16 tensor-core rate."""
+    w = min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w             # per (b, h)
+    flops = 4.0 * D * pairs * B * H
+    nbytes = (2 * B * H + 2 * B * KV) * S * D * esize
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def hold_swa(label, out, plain):
+    """Hold an SWA kernel output to the plain version's on the same inputs
+    (SWA_TOL); returns the max abs error."""
+    import torch
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: kernel output is not finite")
+    atol, rtol = SWA_TOL[str(out.dtype).removeprefix("torch.")]
+    torch.testing.assert_close(out, plain, atol=atol, rtol=rtol,
+                               msg=lambda m: f"{label}: {m}")
+    return float((out.float() - plain.float()).abs().max())
+
+
+def check_swa(label, q, k, v, window, *, time_it=False):
+    """SWA kernel vs plain version on the card for one input; returns a
+    dict of the numbers measured."""
+    import torch
+    from repro_torch.kernels import swa_attention, swa_attention_plain
+    D = q.shape[-1]
+    scale = D ** -0.5
+    out = swa_attention(q, k, v, window=window, scale=scale)
+    plain = swa_attention_plain(q, k, v, window=window, scale=scale)
+    torch.cuda.synchronize()
+    err = hold_swa(label, out, plain)
+    row = {"label": label, "q": list(q.shape), "kv": list(k.shape),
+           "window": window, "dtype": str(q.dtype), "max_abs_err": err}
+    if time_it:
+        B, H, S, _ = q.shape
+        row["ms"] = time_ms(
+            lambda: swa_attention(q, k, v, window=window, scale=scale), 10)
+        row["plain_ms"] = time_ms(
+            lambda: swa_attention_plain(q, k, v, window=window, scale=scale),
+            3)
+        row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
+            swa_bound(B, H, k.shape[1], S, D, window, q.element_size())
+        row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
+        row.update(sdpa_yardstick(q, k, v, window, scale, out))
+    torch.cuda.synchronize()
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def sdpa_yardstick(q, k, v, window, scale, out):
+    """One library call for the same function: PyTorch's memory-efficient
+    scaled_dot_product_attention with the band as an additive mask (it
+    computes every (row, key) pair; K/V are repeated to H heads before
+    the timed call). Used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    S, G = q.shape[2], q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    bias = torch.zeros((S, S), dtype=q.dtype, device=q.device).masked_fill(
+        (rel < 0) | (rel >= window), float("-inf"))
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=bias,
+                                                  scale=scale)
+
+    lib = call()
+    torch.cuda.synchronize()
+    err = float((lib.float() - out.float()).abs().max())
+    torch.testing.assert_close(lib, out, atol=YARDSTICK_TOL,
+                               rtol=YARDSTICK_TOL,
+                               msg=lambda m: f"SDPA yardstick: {m}")
+    ms = time_ms(call, 10)
+    del kr, vr, bias, lib
+    return {"library_ms": ms, "library": "SDPA memory-efficient, band mask",
+            "library_max_abs_err": err}
+
+
+def holding_kernel(errs):
+    """A stand-in for ``ops.swa_attention`` that launches the kernel, holds
+    its output to the plain version's on the same inputs and returns the
+    kernel's, so the forward it runs in is the served one. Each call's
+    max abs error is appended to ``errs``."""
+    from repro_torch.kernels import swa_attention, swa_attention_plain
+
+    def call(q, k, v, *, window, scale):
+        out = swa_attention(q, k, v, window=window, scale=scale)
+        plain = swa_attention_plain(q, k, v, window=window, scale=scale)
+        errs.append(hold_swa(f"layer {len(errs)}", out, plain))
+        return out
+    return call
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -118,8 +249,13 @@ def main():
     import numpy as np
 
     from repro_torch.data import table1_graph
-    from repro_torch.kernels import BlockedEll, _build, spmm_blocked_ell
+    from repro_torch.kernels import (BlockedEll, _build, ops,
+                                     spmm_blocked_ell, swa_attention,
+                                     swa_attention_plain)
+    from repro_torch.launch.serve_prefill import serve_prefill
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.launch.serve_pipeline import gcn_plain, serve
+    from repro_torch.models.common import tree_map
     from repro_torch.sparse import csr_from_dense
 
     dev = torch.device("cuda", 0)
@@ -211,15 +347,121 @@ def main():
     if not cpu_err < GCN_MAX_ERR:
         raise AssertionError(f"card and CPU disagree: {cpu_err}")
     torch.cuda.synchronize()
+    del res, cpu_graph, cpu_params, exp
+    torch.cuda.empty_cache()
+
+    # 5) SWA kernel vs plain on the card
+    phase("5. SWA kernel vs its plain version")
+    B, S, H, KV, D, W = 2, 16384, 32, 8, 128, 4096
+    base = [torch.randn((B, S, n, D), generator=gen, device=dev)
+            for n in (H, KV, KV)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    swa_rows = [check_swa(f"prefill S={S} window={W} float32 (B,S,H,D) "
+                          f"views", q, k, v, W)]
+    q, k, v = (t.to(torch.bfloat16).transpose(1, 2) for t in base)
+    del base
+    swa_rows.append(check_swa(f"prefill S={S} window={W} bf16 (B,S,H,D) "
+                              f"views", q, k, v, W, time_it=True))
+    main_swa = swa_rows[-1]
+    del q, k, v
+    edges = [(s_, w_, d_, g_) for s_, w_ in ((256, 128), (384, 128),
+                                             (512, 256), (256, 256))
+             for d_ in (64, 128) for g_ in (1, 4, 8)] + [(512, 256, 256, 8)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for s_, w_, d_, g_ in edges:
+            q = torch.randn((2, 2 * g_, s_, d_), generator=gen, device=dev,
+                            dtype=dtype)
+            k, v = (torch.randn((2, 2, s_, d_), generator=gen, device=dev,
+                                dtype=dtype) for _ in range(2))
+            swa_rows.append(check_swa(
+                f"S={s_} window={w_} D={d_} G={g_} {dtype}", q, k, v, w_))
+    torch.cuda.empty_cache()
+
+    # 6) SWA prefill path
+    phase(f"6. main path: serve_prefill {PREFILL['arch']} (SWA 4096), "
+          f"{PREFILL['batch']} x {PREFILL['prompt_len']} tokens")
+    spmm_blocked_ell.launches = 0
+    swa_attention.launches = 0
+    pre = serve_prefill(PREFILL["arch"], batch=PREFILL["batch"],
+                        prompt_len=PREFILL["prompt_len"], device=dev)
+    torch.cuda.synchronize()
+    swa_launches = swa_attention.launches
+    cfg = pre.cfg
+    print(f"[prefill] {pre.tokens.numel()} tokens in "
+          f"{pre.seconds * 1e3:.3f} ms ({pre.tok_per_s:.3f} tok/s); "
+          f"swa_attention launches {swa_launches}, spmm_blocked_ell "
+          f"launches {spmm_blocked_ell.launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if (cfg.attention, cfg.window, cfg.n_layers, cfg.d_model) != \
+            ("swa", 4096, 36, 2560):
+        raise AssertionError(f"not the full qwen3-4b SWA config: {cfg}")
+    if swa_launches != cfg.n_layers:
+        raise AssertionError(f"expected {cfg.n_layers} SWA kernel launches, "
+                             f"saw {swa_launches}")
+    if tuple(pre.logits.shape) != (PREFILL["batch"], 1, 152064) \
+            or not torch.isfinite(pre.logits).all():
+        raise AssertionError(f"prefill logits are wrong: "
+                             f"{tuple(pre.logits.shape)}")
+
+    # 7) the served prefill vs the plain attention
+    phase("7. served prefill vs the plain attention: every kernel call, "
+          "and a float32 copy of the model")
+    t0 = time.perf_counter()
+    errs = []
+    with mock.patch.object(ops, "swa_attention", holding_kernel(errs)), \
+            torch.inference_mode():
+        held = make_prefill_step(cfg, device=dev)(pre.params,
+                                                  {"tokens": pre.tokens})
+    torch.cuda.synchronize()
+    print(f"[check] served forward, {len(errs)} kernel calls held to the "
+          f"plain version: {time.perf_counter() - t0:.1f} s; max abs err "
+          f"per layer {errs}", flush=True)
+    if len(errs) != cfg.n_layers or not torch.equal(held, pre.logits):
+        raise AssertionError("the held forward does not reproduce the "
+                             "served logits")
+    t0 = time.perf_counter()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), pre.params)
+    step32 = make_prefill_step(cfg32, device=dev)
+    n0 = swa_attention.launches
+    with torch.inference_mode():
+        kern = step32(params32, {"tokens": pre.tokens})
+        if swa_attention.launches != n0 + cfg.n_layers:
+            raise AssertionError("the float32 forward missed the kernel")
+        with mock.patch.object(ops, "swa_attention", swa_attention_plain):
+            plain = step32(params32, {"tokens": pre.tokens})
+    torch.cuda.synchronize()
+    del params32
+    logit_err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    greedy, plain_greedy = (t[:, -1].argmax(dim=-1) for t in (kern, plain))
+    print(f"[check] float32 forward, kernel vs plain attention: "
+          f"{time.perf_counter() - t0:.1f} s; max |logit diff| "
+          f"{logit_err:.4e} of max |logit| {scale:.4f} "
+          f"({logit_err / scale:.4e}, limit {FP32_LOGITS_TOL}); greedy "
+          f"{greedy.tolist()} vs plain {plain_greedy.tolist()}", flush=True)
+    if not (logit_err <= FP32_LOGITS_TOL * scale
+            and torch.equal(greedy, plain_greedy)):
+        raise AssertionError("the float32 forward's logits differ between "
+                             "the kernel and the plain attention")
+    torch.cuda.synchronize()
 
     kernels = [{
         "name": "spmm_blocked_ell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_blocked_ell.cu",
-        "replaces": "src/repro/kernels/spmm.py:71", "launches": launches,
+        "replaces": "src/repro/kernels/spmm.py:72", "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": oa["ms"], "plain_ms": oa["plain_ms"],
         "bound_ms": oa["bound_ms"], "bound_by": oa["bound_by"],
-        "library_ms": oa["library_ms"]}]
+        "library_ms": oa["library_ms"]}, {
+        "name": "swa_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa.py:81", "launches": swa_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in swa_rows] + errs),
+        "ms": main_swa["ms"], "plain_ms": main_swa["plain_ms"],
+        "bound_ms": main_swa["bound_ms"], "bound_by": main_swa["bound_by"],
+        "library_ms": main_swa["library_ms"]}]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,0 +1,16 @@
+"""mistral-large-123b [dense] — 88L d_model=12288 96H (GQA kv=8) d_ff=28672
+vocab=32768, head_dim=128. [hf:mistralai/Mistral-Large-Instruct-2407]"""
+from ..models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-large-123b", family="dense",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8, head_dim=128,
+    d_ff=28672, vocab_size=32768, activation="swiglu",
+    rope_theta=1e6, fsdp=True,
+    grad_accum=2, accum_dtype="float32",
+)
+
+SMOKE = CONFIG.replace(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=512, fsdp=False, loss_chunk=64, attn_block_k=64,
+)

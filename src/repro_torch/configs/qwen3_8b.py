@@ -1,0 +1,15 @@
+"""qwen3-8b [dense] — 36L d_model=4096 32H (GQA kv=8) d_ff=12288 vocab=151936.
+qk_norm, head_dim=128. [hf:Qwen/Qwen3-8B]"""
+from ..models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=12288, vocab_size=151936, activation="swiglu", qk_norm=True,
+    rope_theta=1e6, fsdp=True,
+)
+
+SMOKE = CONFIG.replace(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=512, fsdp=False, loss_chunk=64, attn_block_k=64,
+)

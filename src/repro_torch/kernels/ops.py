@@ -1,6 +1,7 @@
-"""Public wrappers around the kernels.
+"""Public wrappers around the kernels, in the model zoo's layouts.
 
-The sparse operand is converted to blocked-ELL on the host once and kept on
+``swa_attention_op`` takes (B, S, H, D) activations and hands the kernel
+(B, H, S, D) views of them, without a copy. The sparse operand is converted to blocked-ELL on the host once and kept on
 the device (``BlockedEll``): the paper's pre-loaded static graph data. The
 GCN/GIN models and the serving pipeline multiply by it for every request.
 """
@@ -13,6 +14,15 @@ import torch
 
 from ..device import resolve_device
 from .spmm import csr_to_blocked_ell, spmm_blocked_ell, to_blocked_ell
+from .swa import swa_attention
+
+
+def swa_attention_op(q, k, v, *, window: int, scale: float):
+    """Sliding-window attention, model layout: q (B,S,H,D), k/v (B,S,KV,D)
+    -> (B,S,H,D)."""
+    o = swa_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      window=window, scale=scale)
+    return o.transpose(1, 2)
 
 
 @dataclasses.dataclass

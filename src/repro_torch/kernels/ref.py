@@ -3,6 +3,28 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -1e30
+
+
+def swa_attention_ref(q, k, v, *, window: int, scale: float):
+    """Banded causal attention, materialized (the JAX package's
+    ``kernels/ref.py:swa_attention_ref``). q: (B,H,S,D); k,v: (B,KV,S,D).
+    float32 math, output in q's dtype."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    k = k.repeat_interleave(G, dim=1)
+    v = v.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    valid = (rel >= 0) & (rel < window)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(valid, p, 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    out = out / p.sum(-1).clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
 
 def spmm_ref(blocks, idx, x):
     """Blocked-ELL -> dense scatter in float64, then matmul. Matches

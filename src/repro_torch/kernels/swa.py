@@ -1,0 +1,145 @@
+"""Banded (sliding-window) causal flash attention: the hand-written Hopper
+kernel and its plain PyTorch version.
+
+The TPU kernel ``repro/kernels/swa.py:swa_attention_pallas`` visits, for
+each 128-row query block, only the key blocks inside the window, with an
+online softmax over them (the SWAT analogue). ``swa_attention`` launches
+``csrc/swa_attention.cu`` on a CUDA tensor and uses ``swa_attention_plain``
+on a CPU tensor; it never falls back from one to the other.
+``swa_attention.launches`` counts kernel launches.
+
+Layout: q (B, H, S, D), k and v (B, KV, S, D); query head h reads KV head
+h // (H // KV). Shapes are held to the reference's asserts: S and window
+multiples of its block, ``BLK`` = 128.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+BLK = 128                        # the TPU kernel's block: S, window % BLK == 0
+KERNEL_D = (64, 128, 256)        # head dims the CUDA kernel is built for
+PLAIN_CHUNK_BYTES = 256 << 20    # bound on one piece of the plain scores
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v, window: int):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("want q (B, H, S, D), k and v (B, KV, S, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if tuple(k.shape) != (B, KV, S, D) or k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if S % BLK:
+        raise ValueError(f"S={S} is not a multiple of {BLK}")
+    if window <= 0 or window % BLK:
+        raise ValueError(f"window={window} is not a positive multiple of "
+                         f"{BLK}")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k, v must share one dtype, float32 or bfloat16; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+
+
+def swa_attention_plain(q, k, v, *, window: int, scale: float,
+                        chunk_bytes: int = PLAIN_CHUNK_BYTES):
+    """Plain PyTorch version, in the chunk + halo form of the JAX package's
+    ``models/attention.py:swa_attention``: chunks of c = min(window, S)
+    queries see their own chunk and the one before (2c keys), masked to
+    0 <= row - col < window, with a float32 softmax. S is padded at the end
+    to a multiple of c (padded keys lie after every real query, so the
+    causal mask drops them). Works on one (batch, KV head, chunk, row
+    range) at a time so that a piece of scores stays under ``chunk_bytes``
+    (unchunked they would be 34 GB at the main path's shape)."""
+    _check(q, k, v, window)
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    c = min(window, S)
+    nc = -(-S // c)
+    pad = nc * c - S
+    rows = max(1, min(c, chunk_bytes // max(1, G * 2 * c * 4)))
+    i = torch.arange(c, device=q.device)[:, None]
+    j = torch.arange(2 * c, device=q.device)[None, :]
+    rel = i + c - j                          # distance q - k
+    band = (rel >= 0) & (rel < window)
+    out = torch.empty_like(q)
+    for b in range(B):
+        for kh in range(KV):
+            heads = slice(kh * G, (kh + 1) * G)
+            qf = q[b, heads].float() * scale                    # (G, S, D)
+            # halo: one chunk of zeros before the first
+            kf = torch.nn.functional.pad(k[b, kh].float(), (0, 0, c, pad))
+            vf = torch.nn.functional.pad(v[b, kh].float(), (0, 0, c, pad))
+            for n in range(nc):
+                kw, vw = kf[n * c:(n + 2) * c], vf[n * c:(n + 2) * c]
+                valid = band if n > 0 else band & (j >= c)
+                for r0 in range(0, min(c, S - n * c), rows):
+                    r1 = min(r0 + rows, S - n * c)
+                    s = qf[:, n * c + r0:n * c + r1] @ kw.T    # (G, r, 2c)
+                    s = torch.where(valid[r0:r1], s, NEG_INF)
+                    p = torch.softmax(s, dim=-1)
+                    out[b, heads, n * c + r0:n * c + r1] = (p @ vw).to(
+                        q.dtype)
+    return out
+
+
+@functools.cache
+def _kernel_fn():
+    fn = _build.load("swa_attention").swa_attention_fwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int64] * 12 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def swa_attention(q, k, v, *, window: int, scale: float):
+    """Banded causal attention, (B, H, S, D) -> (B, H, S, D) in q's dtype.
+
+    On a CUDA tensor: the hand-written kernel, on the current stream; the
+    output has q's strides, and any strides with a contiguous last
+    dimension and 16-byte aligned rows are read in place. On a CPU tensor:
+    ``swa_attention_plain``."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return swa_attention_plain(q, k, v, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if D not in KERNEL_D or B * H > 65535:
+        raise ValueError(f"kernel takes D in {KERNEL_D} and B*H <= 65535; "
+                         f"got D={D}, B*H={B * H}")
+    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                (st * t.element_size()) % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: the last dimension must be contiguous "
+                             f"and rows 16-byte aligned; strides "
+                             f"{t.stride()}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel_fn()(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, H, KV, S, D, window, scale,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"swa_attention launch failed: cudaError {err}")
+    swa_attention.launches += 1
+    return out
+
+
+swa_attention.launches = 0

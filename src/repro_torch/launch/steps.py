@@ -1,0 +1,34 @@
+"""Step builders: the prefill step, and the config switch of the long shape.
+
+The train and decode steps wait for their slices (ROADMAP.md A.9).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs import LONG_VIA_SWA, ShapeSpec
+from ..device import resolve_device
+from ..models import lm
+from ..models.common import ModelConfig
+from ..models.layers import logits_from_hidden
+
+
+def effective_config(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
+    """long_500k switches dense archs to the paper's sliding-window attention."""
+    if shape.name == "long_500k" and cfg.name in LONG_VIA_SWA:
+        return cfg.replace(attention="swa", window=4096)
+    return cfg
+
+
+def make_prefill_step(cfg: ModelConfig, device=None):
+    """A step ``(params, batch) -> (B, 1, V)`` float32 logits of the last
+    position. ``batch["tokens"]`` is (B, S) and is moved to ``device``."""
+    dev = resolve_device(device)
+    lm.model_decls(cfg)                      # raises for unported families
+
+    def prefill_step(params, batch):
+        tokens = torch.as_tensor(batch["tokens"]).to(dev)
+        h = lm.forward(params, tokens, cfg)
+        return logits_from_hidden(h[:, -1:], params, cfg)
+
+    return prefill_step

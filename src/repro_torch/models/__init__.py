@@ -1,3 +1,6 @@
-"""Models of the port: the GNN case studies (GCN, GIN)."""
+"""Models of the port: the GNN case studies (GCN, GIN) and the dense LM
+family (prefill, with sliding-window attention on the banded kernel)."""
 from .gnn import (GCN, GIN, gcn_params_from_numpy, gin_params_from_numpy,
                   init_gcn_params, init_gin_params)
+from .common import ModelConfig, ParamDecl, init_params, param_count
+from .lm import forward, lm_params_from_numpy, model_decls

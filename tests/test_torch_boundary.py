@@ -58,7 +58,12 @@ def _entry_points():
     from repro_torch import resolve_device
     from repro_torch.data import table1_graph
     from repro_torch.kernels import BlockedEll
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve_prefill as prefill
     from repro_torch.launch.serve_pipeline import main, serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import (init_params, lm_params_from_numpy,
+                                    model_decls)
     from repro_torch.models import (gcn_params_from_numpy, init_gcn_params,
                                     init_gin_params)
     from repro_torch.runtime import (GroupedPipelineExecutor,
@@ -66,6 +71,7 @@ def _entry_points():
     from repro_torch.sparse import csr_from_dense, random_graph_csr
 
     a = np.eye(16, dtype=np.float32)
+    lm = get_smoke("qwen3-4b")
     return {
         "resolve_device": lambda: resolve_device(),
         "random_graph_csr": lambda: random_graph_csr(32, 64),
@@ -83,6 +89,14 @@ def _entry_points():
             [lambda p, x: x], {}, (2, 2), (1,)),
         "serve": lambda: serve("OA", 1, scale=0.006024),
         "serve_pipeline.main": lambda: main(["--scale", "0.006024"]),
+        "init_params": lambda: init_params(model_decls(lm)),
+        "lm_params_from_numpy": lambda: lm_params_from_numpy(
+            {"embedding": np.zeros((lm.padded_vocab, lm.d_model))}, lm),
+        "make_prefill_step": lambda: make_prefill_step(lm),
+        "serve_prefill": lambda: prefill.serve_prefill(
+            smoke=True, prompt_len=256, window=128),
+        "serve_prefill.main": lambda: prefill.main(
+            ["--smoke", "--prompt-len", "256", "--window", "128"]),
     }
 
 
