@@ -30,7 +30,22 @@ raises and the script exits non-zero:
    the same inputs and held to it (one bf16 ulp), which must give the
    served logits bit for bit; then run a float32 copy of the model with
    the kernel and with the plain attention, whose logits must agree to
-   1e-4 of the largest and give the same greedy tokens.
+   1e-4 of the largest and give the same greedy tokens;
+8. hold the SSD chunk-scan kernel against its plain version at the mamba2
+   prefill path's shape (x (4, 32768, 48, 64), B/C (4, 32768, 128), chunk
+   256, read in place as strided views of one (b, L, 3328) conv output;
+   bf16, then float32), at edge shapes ((L, Q) and (P, N), float32 and
+   bf16), with an initial state, and under two chunkings of the final
+   state, with its time, the plain version's and the bound (no single
+   PyTorch call computes the chunk scan, so there is no library yardstick);
+9. drive the SSD prefill path: mamba2-780m at full width and depth under
+   the prefill_32k shape, 4 requests x 32,768 tokens, launch counters set
+   to 0 just before and read just after (48 SSD launches, 0 SWA);
+10. check the served mamba2 prefill against the plain SSD: rerun the served
+   forward with every kernel call also computed by the plain version and
+   held to it (one bf16 ulp on y), which must give the served logits bit
+   for bit; then a float32 copy of the model with the kernel and with the
+   plain SSD, logits within 1e-4 of the largest and the same greedy tokens.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -57,10 +72,17 @@ YARDSTICK_TOL = 2e-2
 # a float32 copy of the prefill model, kernel vs plain attention: the
 # largest logit difference as a share of the largest logit
 FP32_LOGITS_TOL = 1e-4
+# SSD kernel vs plain version, (atol, rtol) on y: as SWA_TOL (float32
+# keeps tests/test_kernels.py's 2e-5; both round a float32 y once); the
+# float32 final state at 2e-5
+SSD_TOL = SWA_TOL
+STATE_TOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12              # H100 SXM, fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12             # H100 SXM, dense bf16 tensor cores
 PREFILL = {"arch": "qwen3-4b", "batch": 2, "prompt_len": 16384}
+SSD_PREFILL = {"arch": "mamba2-780m", "shape": "prefill_32k", "batch": 4,
+               "prompt_len": 32768}
 
 
 def phase(name):
@@ -240,6 +262,109 @@ def holding_kernel(errs):
     return call
 
 
+def ssd_inputs(gen, dev, b, L, H, P, N, dtype, slow=False):
+    """SSD inputs laid out as ``mamba_block`` feeds them: x, B and C are
+    strided views of one (b, L, H*P + 2N) tensor (the conv output), dt a
+    (b, L, H) tensor of the same dtype; A_log and D (H,) float32. The
+    distributions of tests/test_kernels.py:_ssd_inputs, where a chunk of
+    256 decays the state by about e^-180; ``slow`` shifts dt by -4 and
+    A_log by -3 (a chunk decays it by about e^-0.2), so that the state
+    carried across chunks counts."""
+    import torch
+    packed = torch.empty((b, L, H * P + 2 * N), device=dev, dtype=dtype)
+    packed[..., :H * P] = torch.randn((b, L, H * P), generator=gen,
+                                      device=dev)
+    packed[..., H * P:] = torch.randn((b, L, 2 * N), generator=gen,
+                                      device=dev) * N ** -0.5
+    dt = (torch.randn((b, L, H), generator=gen, device=dev) * 0.5
+          - 4 * slow).to(dtype)
+    return (packed[..., :H * P].reshape(b, L, H, P), dt,
+            packed[..., H * P:H * P + N], packed[..., H * P + N:],
+            torch.randn((H,), generator=gen, device=dev) * 0.3 - 3 * slow,
+            torch.randn((H,), generator=gen, device=dev) * 0.1)
+
+
+def ssd_bound(args, chunk, init_state=None):
+    """Least time for the SSD scan of these inputs: every input read once
+    and y and the final state written once, against its products with
+    C B^T counted once per (batch, chunk) (B and C are shared by the
+    heads) and only the causal triangle of C B^T and W x, at the dense
+    bf16 tensor-core rate for bf16 inputs (the CUDA cores' float32 rate
+    for float32)."""
+    import torch
+    x, B = args[0], args[2]
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    nc = L // Q
+    tri = Q * (Q + 1) // 2
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + x.numel() * x.element_size() + b * H * P * N * 4
+    if init_state is not None:
+        nbytes += init_state.numel() * init_state.element_size()
+    flops = 2.0 * b * nc * (tri * N + H * (tri * P + 2 * Q * P * N))
+    rate = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def hold_ssd(label, y, state, py, pstate):
+    """Hold an SSD kernel result to the plain version's on the same inputs
+    (SSD_TOL on y, STATE_TOL on the state); returns the max abs errors."""
+    import torch
+    if not (torch.isfinite(y).all() and torch.isfinite(state).all()):
+        raise AssertionError(f"{label}: kernel output is not finite")
+    atol, rtol = SSD_TOL[str(y.dtype).removeprefix("torch.")]
+    torch.testing.assert_close(y, py, atol=atol, rtol=rtol,
+                               msg=lambda m: f"{label} y: {m}")
+    torch.testing.assert_close(state, pstate, atol=STATE_TOL, rtol=STATE_TOL,
+                               msg=lambda m: f"{label} state: {m}")
+    return (float((y.float() - py.float()).abs().max()),
+            float((state - pstate).abs().max()))
+
+
+def check_ssd(label, args, chunk, *, init_state=None, time_it=False):
+    """SSD kernel vs plain version on the card for one input; returns a
+    dict of the numbers measured."""
+    import torch
+    from repro_torch.kernels import ssd_chunked, ssd_chunked_plain
+    kw = {"chunk": chunk, "init_state": init_state}
+    y, state = ssd_chunked(*args, **kw)
+    py, pstate = ssd_chunked_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, state_err = hold_ssd(label, y, state, py, pstate)
+    row = {"label": label, "x": list(args[0].shape), "N": args[2].shape[-1],
+           "chunk": chunk, "dtype": str(args[0].dtype), "max_abs_err": err,
+           "state_max_abs_err": state_err}
+    if time_it:
+        row["ms"] = time_ms(lambda: ssd_chunked(*args, **kw), 10)
+        row["plain_ms"] = time_ms(lambda: ssd_chunked_plain(*args, **kw), 3)
+        row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
+            ssd_bound(args, chunk, init_state)
+        row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
+        row["library_ms"] = None
+    del y, state, py, pstate
+    torch.cuda.synchronize()
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def holding_ssd(errs):
+    """A stand-in for ``models.ssm.ssd_chunked`` that launches the kernel,
+    holds its result to the plain version's on the same inputs and
+    returns the kernel's, so the forward it runs in is the served one.
+    Each call's max abs error on y is appended to ``errs``."""
+    from repro_torch.kernels import ssd_chunked, ssd_chunked_plain
+
+    def call(*args, **kw):
+        y, state = ssd_chunked(*args, **kw)
+        py, pstate = ssd_chunked_plain(*args, **kw)
+        errs.append(hold_ssd(f"layer {len(errs)}", y, state, py, pstate)[0])
+        return y, state
+    return call
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -250,11 +375,13 @@ def main():
 
     from repro_torch.data import table1_graph
     from repro_torch.kernels import (BlockedEll, _build, ops,
-                                     spmm_blocked_ell, swa_attention,
+                                     spmm_blocked_ell, ssd_chunked,
+                                     ssd_chunked_plain, swa_attention,
                                      swa_attention_plain)
     from repro_torch.launch.serve_prefill import serve_prefill
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.launch.serve_pipeline import gcn_plain, serve
+    from repro_torch.models import ssm as ssm_model
     from repro_torch.models.common import tree_map
     from repro_torch.sparse import csr_from_dense
 
@@ -446,6 +573,119 @@ def main():
         raise AssertionError("the float32 forward's logits differ between "
                              "the kernel and the plain attention")
     torch.cuda.synchronize()
+    del pre, held, kern, plain
+    torch.cuda.empty_cache()
+
+    # 8) SSD kernel vs plain on the card
+    phase("8. SSD kernel vs its plain version")
+    b, L, H, P, N, Qc = 4, 32768, 48, 64, 128, 256
+    ssd_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = ssd_inputs(gen, dev, b, L, H, P, N, dtype)
+        ssd_rows.append(check_ssd(
+            f"prefill L={L} chunk={Qc} {dtype} strided views", args, Qc,
+            time_it=dtype == torch.bfloat16))
+        del args
+    main_ssd = ssd_rows[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        for l_, q_ in ((256, 128), (512, 128), (512, 256), (128, 128),
+                       (96, 256)):
+            for p_, n_ in ((64, 128), (128, 128), (64, 64)):
+                args = ssd_inputs(gen, dev, 2, l_, 3, p_, n_, dtype)
+                ssd_rows.append(check_ssd(
+                    f"L={l_} chunk={q_} P={p_} N={n_} {dtype}", args, q_))
+        for slow in (False, True):
+            args = ssd_inputs(gen, dev, 2, 512, 3, 64, 128, dtype, slow)
+            ssd_rows.append(check_ssd(f"slow={slow} L=512 chunk=128 {dtype}",
+                                      args, 128))
+            s0 = torch.randn((2, 3, 64, 128), generator=gen, device=dev)
+            ssd_rows.append(check_ssd(
+                f"init_state slow={slow} L=512 chunk=128 {dtype}", args, 128,
+                init_state=s0))
+        # the final state under two chunkings (tests/test_kernels.py)
+        _, s128 = ssd_chunked(*args, chunk=128)
+        _, s64 = ssd_chunked(*args, chunk=64)
+        torch.testing.assert_close(s128, s64, atol=STATE_TOL, rtol=STATE_TOL)
+        print(f"[check] final state, chunk 128 vs 64 {dtype}: max abs diff "
+              f"{float((s128 - s64).abs().max()):.3e}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 9) SSD prefill path
+    phase(f"9. main path: serve_prefill {SSD_PREFILL['arch']} "
+          f"({SSD_PREFILL['shape']}), {SSD_PREFILL['batch']} x "
+          f"{SSD_PREFILL['prompt_len']} tokens")
+    torch.cuda.reset_peak_memory_stats()
+    spmm_blocked_ell.launches = 0
+    swa_attention.launches = 0
+    ssd_chunked.launches = 0
+    mam = serve_prefill(SSD_PREFILL["arch"], shape=SSD_PREFILL["shape"],
+                        batch=SSD_PREFILL["batch"],
+                        prompt_len=SSD_PREFILL["prompt_len"], device=dev)
+    torch.cuda.synchronize()
+    ssd_launches = ssd_chunked.launches
+    mcfg = mam.cfg
+    print(f"[prefill] {mam.tokens.numel()} tokens in "
+          f"{mam.seconds * 1e3:.3f} ms ({mam.tok_per_s:.3f} tok/s); "
+          f"ssd_chunked launches {ssd_launches}, swa_attention launches "
+          f"{swa_attention.launches}, spmm_blocked_ell launches "
+          f"{spmm_blocked_ell.launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if (mcfg.family, mcfg.n_layers, mcfg.d_model, mcfg.ssm_state,
+            mcfg.ssm_chunk, mcfg.ssm_heads, mcfg.ssm_head_dim) != \
+            ("ssm", 48, 1536, 128, 256, 48, 64):
+        raise AssertionError(f"not the full mamba2-780m config: {mcfg}")
+    if ssd_launches != mcfg.n_layers or swa_attention.launches != 0:
+        raise AssertionError(f"expected {mcfg.n_layers} SSD and 0 SWA kernel "
+                             f"launches, saw {ssd_launches} and "
+                             f"{swa_attention.launches}")
+    if tuple(mam.logits.shape) != (SSD_PREFILL["batch"], 1, 50432) \
+            or not torch.isfinite(mam.logits).all():
+        raise AssertionError(f"prefill logits are wrong: "
+                             f"{tuple(mam.logits.shape)}")
+
+    # 10) the served mamba2 prefill vs the plain SSD
+    phase("10. served mamba2 prefill vs the plain SSD: every kernel call, "
+          "and a float32 copy of the model")
+    t0 = time.perf_counter()
+    ssd_errs = []
+    with mock.patch.object(ssm_model, "ssd_chunked",
+                           holding_ssd(ssd_errs)), torch.inference_mode():
+        held = make_prefill_step(mcfg, device=dev)(mam.params,
+                                                   {"tokens": mam.tokens})
+    torch.cuda.synchronize()
+    print(f"[check] served forward, {len(ssd_errs)} kernel calls held to the "
+          f"plain version: {time.perf_counter() - t0:.1f} s; max abs err "
+          f"per layer {ssd_errs}", flush=True)
+    if len(ssd_errs) != mcfg.n_layers or not torch.equal(held, mam.logits):
+        raise AssertionError("the held forward does not reproduce the "
+                             "served logits")
+    t0 = time.perf_counter()
+    mcfg32 = mcfg.replace(param_dtype="float32", compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), mam.params)
+    step32 = make_prefill_step(mcfg32, device=dev)
+    n0 = ssd_chunked.launches
+    with torch.inference_mode():
+        kern = step32(params32, {"tokens": mam.tokens})
+        if ssd_chunked.launches != n0 + mcfg.n_layers:
+            raise AssertionError("the float32 forward missed the kernel")
+        with mock.patch.object(ssm_model, "ssd_chunked", ssd_chunked_plain):
+            plain = step32(params32, {"tokens": mam.tokens})
+    torch.cuda.synchronize()
+    del params32
+    ssd_logit_err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    greedy, plain_greedy = (t[:, -1].argmax(dim=-1) for t in (kern, plain))
+    print(f"[check] float32 forward, kernel vs plain SSD: "
+          f"{time.perf_counter() - t0:.1f} s; max |logit diff| "
+          f"{ssd_logit_err:.4e} of max |logit| {scale:.4f} "
+          f"({ssd_logit_err / scale:.4e}, limit {FP32_LOGITS_TOL}); greedy "
+          f"{greedy.tolist()} vs plain {plain_greedy.tolist()}", flush=True)
+    if not (ssd_logit_err <= FP32_LOGITS_TOL * scale
+            and torch.equal(greedy, plain_greedy)):
+        raise AssertionError("the float32 forward's logits differ between "
+                             "the kernel and the plain SSD")
+    torch.cuda.synchronize()
 
     kernels = [{
         "name": "spmm_blocked_ell", "route": "cuda",
@@ -461,7 +701,14 @@ def main():
         "max_abs_err": max([r["max_abs_err"] for r in swa_rows] + errs),
         "ms": main_swa["ms"], "plain_ms": main_swa["plain_ms"],
         "bound_ms": main_swa["bound_ms"], "bound_by": main_swa["bound_by"],
-        "library_ms": main_swa["library_ms"]}]
+        "library_ms": main_swa["library_ms"]}, {
+        "name": "ssd_chunked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunked.cu",
+        "replaces": "src/repro/kernels/ssd.py:74", "launches": ssd_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in ssd_rows] + ssd_errs),
+        "ms": main_ssd["ms"], "plain_ms": main_ssd["plain_ms"],
+        "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
+        "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,13 +5,17 @@
   * ``swa`` — banded sliding-window flash attention (CUDA C++,
     ``csrc/swa_attention.cu``), the port of the TPU kernel
     ``repro/kernels/swa.py:swa_attention_pallas``
+  * ``ssd`` — the Mamba2 SSD chunk scan (CUDA C++, ``csrc/ssd_chunked.cu``),
+    the port of the TPU kernel ``repro/kernels/ssd.py:ssd_chunked_pallas``
 
 Each kernel ships with its plain PyTorch version beside it (used on CPU
-tensors and as the comparison on the card), a launch counter, and an oracle
-in ref.py. ``_build`` compiles the CUDA sources at first use.
+tensors and as the comparison on the card) and a launch counter; ref.py
+holds the SpMM and SWA oracles (the SSD's is its plain version, as the JAX
+package's is the model zoo's ``ssd_chunked``). ``_build`` compiles the CUDA sources at first use.
 """
 from .spmm import (csr_to_blocked_ell, spmm_blocked_ell,
                    spmm_blocked_ell_plain, to_blocked_ell)
 from .swa import swa_attention, swa_attention_plain
+from .ssd import ssd_chunked, ssd_chunked_plain
 from .ops import BlockedEll, spmm_op, swa_attention_op
 from . import ref

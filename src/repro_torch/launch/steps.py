@@ -22,7 +22,8 @@ def effective_config(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
 
 def make_prefill_step(cfg: ModelConfig, device=None):
     """A step ``(params, batch) -> (B, 1, V)`` float32 logits of the last
-    position. ``batch["tokens"]`` is (B, S) and is moved to ``device``."""
+    position, for every ported family (dense, ssm). ``batch["tokens"]`` is
+    (B, S) and is moved to ``device``."""
     dev = resolve_device(device)
     lm.model_decls(cfg)                      # raises for unported families
 

@@ -63,6 +63,12 @@ def ffn_decls(cfg: ModelConfig, d_ff: int | None = None,
     }
 
 
+def silu(x):
+    """``jax.nn.silu`` op by op, x * (1 / (1 + exp(-x))), so that a
+    bfloat16 input rounds after every op where the reference does."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def _gate(act: str, u, g):
     """The gate op by op as ``jax.nn.silu`` and ``jax.nn.gelu`` (tanh form,
     constants in g's dtype) decompose, so that a bfloat16 gate rounds
@@ -71,7 +77,7 @@ def _gate(act: str, u, g):
     if act == "geglu":
         inner = c(math.sqrt(2 / math.pi)) * (g + c(0.044715) * (g * g * g))
         return u * (g * (c(0.5) * (1 + torch.tanh(inner))))
-    return u * (g * (1 / (1 + torch.exp(-g))))  # swiglu
+    return u * silu(g)  # swiglu
 
 
 def ffn_apply(p, x, cfg: ModelConfig):

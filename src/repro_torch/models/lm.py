@@ -1,5 +1,7 @@
-"""Model assembly, dense family: (GQA/MQA attention + gated FFN) x N
-(gemma, qwen, mistral), forward only.
+"""Model assembly, forward only, for the ported families:
+
+  dense — (GQA/MQA attention + gated FFN) x N   (gemma, qwen, mistral)
+  ssm   — (RMSNorm -> Mamba2 mixer -> residual) x N   (mamba2-780m)
 
 Parameters are a nested dict shaped like the JAX package's pytree, with
 the per-layer weights stacked along a leading layer axis (``"layers"``);
@@ -16,21 +18,22 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn
+from . import ssm as ssm_mod
 from .common import ModelConfig, ParamDecl, tree_leaves, tree_map
 from .layers import (embed_apply, embed_decls, ffn_apply, ffn_decls,
                      norm_decl, rms_norm)
 
+_PORTED = ("dense", "ssm")
 _NOT_PORTED = {
     "moe": "ROADMAP.md A.8 (models/mla.py, models/moe.py)",
-    "ssm": "ROADMAP.md B3 and A.8 (models/ssm.py, mamba2-780m prefill)",
-    "hybrid": "ROADMAP.md B3 and A.8 (models/ssm.py, zamba2)",
+    "hybrid": "ROADMAP.md A.8 (zamba2's shared attention over mamba blocks)",
     "encdec": "ROADMAP.md A.8 (encoder and cross-attention)",
     "vlm": "ROADMAP.md A.8 (prefix embeddings of the vlm family)",
 }
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig):
+    if cfg.family not in _PORTED:
         where = _NOT_PORTED.get(cfg.family)
         if where is None:
             raise ValueError(cfg.family)
@@ -49,11 +52,20 @@ def _attn_block_decls(cfg: ModelConfig, stack: int | None):
             "ffn": ffn_decls(cfg, None, stack)}
 
 
+def _mamba_block_decls(cfg: ModelConfig, stack: int | None):
+    st = () if stack is None else (stack,)
+    return {"ln": ParamDecl(st + (cfg.d_model,), init="ones"),
+            "mix": ssm_mod.ssm_decls(cfg, stack)}
+
+
 def model_decls(cfg: ModelConfig):
-    _require_dense(cfg)
+    _require_ported(cfg)
     decls: dict[str, Any] = dict(embed_decls(cfg))
     decls["final_norm"] = norm_decl(cfg.d_model)
-    decls["layers"] = _attn_block_decls(cfg, cfg.n_layers)
+    if cfg.family == "ssm":
+        decls["layers"] = _mamba_block_decls(cfg, cfg.n_layers)
+    else:
+        decls["layers"] = _attn_block_decls(cfg, cfg.n_layers)
     return decls
 
 
@@ -100,14 +112,23 @@ def attn_block(p, x, positions, cfg: ModelConfig):
     return x + ffn_apply(p["ffn"], h, cfg)
 
 
+def mamba_block(p, x, cfg: ModelConfig):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    return x + ssm_mod.mamba_block(p["mix"], h, cfg)
+
+
 def forward(params, tokens, cfg: ModelConfig):
     """tokens: (B, S) integer tensor -> final-norm hidden states (B, S, d).
-    (The reference also returns an aux loss, which is 0 for this family.)"""
-    _require_dense(cfg)
+    (The reference also returns an aux loss, which is 0 for these
+    families.)"""
+    _require_ported(cfg)
     x = embed_apply(params, tokens, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     for i in range(cfg.n_layers):
         lp = tree_map(lambda t: t[i], params["layers"])
-        x = attn_block(lp, x, positions, cfg)
+        if cfg.family == "ssm":
+            x = mamba_block(lp, x, cfg)
+        else:
+            x = attn_block(lp, x, positions, cfg)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -57,7 +57,7 @@ def _entry_points():
 
     from repro_torch import resolve_device
     from repro_torch.data import table1_graph
-    from repro_torch.kernels import BlockedEll
+    from repro_torch.kernels import BlockedEll, ssd_chunked
     from repro_torch.configs import get_smoke
     from repro_torch.launch import serve_prefill as prefill
     from repro_torch.launch.serve_pipeline import main, serve
@@ -97,6 +97,15 @@ def _entry_points():
             smoke=True, prompt_len=256, window=128),
         "serve_prefill.main": lambda: prefill.main(
             ["--smoke", "--prompt-len", "256", "--window", "128"]),
+        "ssd_chunked": lambda: ssd_chunked(
+            *(torch.zeros(s, device=resolve_device()) for s in
+              ((1, 64, 2, 64), (1, 64, 2), (1, 64, 64), (1, 64, 64), (2,),
+               (2,))), chunk=64),
+        "serve_prefill mamba2": lambda: prefill.serve_prefill(
+            "mamba2-780m", shape="prefill_32k", smoke=True, prompt_len=256),
+        "serve_prefill.main mamba2": lambda: prefill.main(
+            ["--arch", "mamba2-780m", "--shape", "prefill_32k", "--smoke",
+             "--prompt-len", "256"]),
     }
 
 

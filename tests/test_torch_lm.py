@@ -91,12 +91,14 @@ def test_shape_tables_match_reference(jref):
     assert cfg.pdtype == torch.bfloat16
 
 
-def test_param_count_and_decls_match_reference(jref):
-    cfg = tconfigs.get_config("qwen3-4b")
-    ref_decls = jref.models.model_decls(jref.configs.get_config("qwen3-4b"),
+@pytest.mark.parametrize("arch,count", [("qwen3-4b", 4_412_079_616),
+                                        ("mamba2-780m", 780_382_464)])
+def test_param_count_and_decls_match_reference(jref, arch, count):
+    cfg = tconfigs.get_config(arch)
+    ref_decls = jref.models.model_decls(jref.configs.get_config(arch),
                                         jref.models.CPU_AXES)
     assert param_count(model_decls(cfg)) == \
-        jref.models.param_count(ref_decls) == 4_412_079_616
+        jref.models.param_count(ref_decls) == count
     shapes = {jref.jax.tree_util.keystr(p): tuple(d.shape) for p, d in
               jref.jax.tree_util.tree_flatten_with_path(
                   ref_decls, is_leaf=lambda x: hasattr(x, "spec"))[0]}
@@ -289,9 +291,8 @@ def test_lm_params_from_numpy_checks_the_tree():
         lm_params_from_numpy(tree, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-780m",
-                                  "zamba2-7b", "seamless-m4t-large-v2",
-                                  "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-7b",
+                                  "seamless-m4t-large-v2", "paligemma-3b"])
 def test_unported_families_raise(arch):
     cfg = tconfigs.get_smoke(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
