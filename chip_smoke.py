@@ -6,14 +6,22 @@ raises and the script exits non-zero:
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one ``nvcc`` per source, started together);
-2. hold the blocked-ELL SpMM kernel against its plain PyTorch version on
-   the card, at the GCN path's shapes (ogbn-arxiv, 170,000 vertices,
-   bm = bk = 16, N = 128) and at edge shapes, with its time, the plain
-   version's, the bound, and one library call's as a yardstick (never used
-   by the port);
+2. hold the two SpMM kernels against their plain PyTorch versions on the
+   card: the row-wise CSR kernel (the GCN path's) at the path's shape
+   (ogbn-arxiv, 170,000 vertices, int32 CSR, N = 128), at N = 100 there,
+   and at edge shapes (N = 64/100/256, empty rows and a row of 1,000
+   non-zeros, one non-zero, M != K), also against ``torch.sparse.mm`` at
+   the path's shape, with two calls bit for bit equal and the CSR compacted
+   from the blocked-ELL operand giving the same product bit for bit; the
+   blocked-ELL kernel (the TPU kernel's literal interface, off the path)
+   at ogbn-arxiv (bm = bk = 16, N = 128 and 100) and at edge shapes. Each
+   with its time at the path's shape, the plain version's, the bound of
+   the work (the CSR's bytes) and one library call's as a yardstick
+   (``torch.sparse.mm``, never used by the port);
 3. drive the GCN path: DYPE-scheduled 2-layer GCN serving on ogbn-arxiv at
    full size, 8 requests through the 4-stage pipeline, with the launch
-   counters set to 0 just before and read just after;
+   counters set to 0 just before and read just after (16 launches of the
+   CSR kernel, 0 of the blocked-ELL kernel);
 4. check the served output against a CPU computation of the same GCN on the
    same inputs;
 5. hold the banded SWA kernel against its plain version at the prefill
@@ -24,7 +32,8 @@ raises and the script exits non-zero:
    the band as a mask;
 6. drive the SWA prefill path: qwen3-4b with sliding-window attention
    (window 4096) at full width and depth, 2 requests x 16,384 tokens,
-   launch counters set to 0 just before and read just after (36 launches);
+   launch counters set to 0 just before and read just after (36 launches,
+   0 of either SpMM kernel);
 7. check the served prefill against the plain attention: rerun the served
    forward with every kernel call also computed by the plain version on
    the same inputs and held to it (one bf16 ulp), which must give the
@@ -40,7 +49,8 @@ raises and the script exits non-zero:
    PyTorch call computes the chunk scan, so there is no library yardstick);
 9. drive the SSD prefill path: mamba2-780m at full width and depth under
    the prefill_32k shape, 4 requests x 32,768 tokens, launch counters set
-   to 0 just before and read just after (48 SSD launches, 0 SWA);
+   to 0 just before and read just after (48 SSD launches, 0 SWA, 0 of
+   either SpMM kernel);
 10. check the served mamba2 prefill against the plain SSD: rerun the served
    forward with every kernel call also computed by the plain version and
    held to it (one bf16 ulp on y), which must give the served logits bit
@@ -104,58 +114,89 @@ def time_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def spmm_bound(blocks, idx, x):
-    """Least time for out = A @ x from these inputs: every byte of blocks,
-    idx and x read once and the output written once, against the FMA of the
-    stored non-zeros only (padding and zeros inside tiles need none)."""
-    import torch
-    N = x.shape[1]
-    out_bytes = blocks.shape[0] * blocks.shape[2] * N * 4
-    nbytes = (blocks.numel() * 4 + idx.numel() * 4 + x.numel() * 4
-              + out_bytes)
-    flops = 2.0 * int(torch.count_nonzero(blocks)) * N
+def spmm_bound(a, x):
+    """Least time for out = A @ x, whatever implements it: what these inputs
+    need, the CSR operand ``a`` (int32 indptr and indices, float32 values)
+    and x read once and the output written once, against the FMA of the
+    stored non-zeros. The bound of both SpMM kernels."""
+    M, N = a.shape[0], x.shape[1]
+    nbytes = (a.nbytes + x.numel() * x.element_size()
+              + M * N * x.element_size())
+    flops = 2.0 * a.nnz * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def check_spmm(label, a, x, *, time_it=False, csr=None):
-    """Kernel vs plain version on the card for one operand; returns a dict
-    of the numbers measured."""
+def hold(label, out, plain):
+    """Hold an SpMM kernel output to the plain version's (ATOL, RTOL);
+    returns the max abs error."""
+    import torch
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: kernel output is not finite")
+    torch.testing.assert_close(out, plain, atol=ATOL, rtol=RTOL,
+                               msg=lambda m: f"{label}: {m}")
+    return float((out - plain).abs().max())
+
+
+def check_csr(label, a, x, *, time_it=False):
+    """Row-wise CSR kernel vs plain version on the card for one operand;
+    with ``time_it`` also the times, the bound and the library call
+    (``torch.sparse.mm`` on the same int32 CSR, held to the kernel too).
+    Returns a dict of the numbers measured."""
+    import torch
+    from repro_torch.kernels import spmm_csr_rows, spmm_csr_rows_plain
+    args = (a.indptr, a.indices, a.values, x)
+    out = spmm_csr_rows(*args)
+    plain = spmm_csr_rows_plain(*args)
+    torch.cuda.synchronize()
+    row = {"label": label, "shape": list(a.shape) + [x.shape[1]],
+           "nnz": a.nnz, "max_abs_err": hold(label, out, plain)}
+    if time_it:
+        row["ms"] = time_ms(lambda: spmm_csr_rows(*args), 10)
+        row["plain_ms"] = time_ms(lambda: spmm_csr_rows_plain(*args), 3)
+        row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
+            spmm_bound(a, x)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["gb_per_s"] = row["bytes"] / row["ms"] / 1e6
+        lib = torch.sparse_csr_tensor(a.indptr, a.indices, a.values,
+                                      size=a.shape)
+        ref = torch.sparse.mm(lib, x)
+        torch.cuda.synchronize()
+        row["library_max_abs_err"] = float((out - ref).abs().max())
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL,
+                                   msg=lambda m: f"{label} vs library: {m}")
+        row["library_ms"] = time_ms(lambda: torch.sparse.mm(lib, x), 10)
+        row["library"] = "torch.sparse.mm, int32 CSR"
+    del out, plain
+    torch.cuda.synchronize()
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def check_spmm(label, a, x, *, time_it=False, work=None):
+    """Blocked-ELL kernel vs plain version on the card for one operand;
+    with ``time_it`` also the times and the bound of the work, from its
+    CSR operand ``work``. Returns a dict of the numbers measured."""
     import torch
     from repro_torch.kernels import spmm_blocked_ell, spmm_blocked_ell_plain
     out = spmm_blocked_ell(a.blocks, a.idx, x)
     plain = spmm_blocked_ell_plain(a.blocks, a.idx, x)
     torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"{label}: kernel output is not finite")
-    err = float((out - plain).abs().max())
-    torch.testing.assert_close(out, plain, atol=ATOL, rtol=RTOL,
-                               msg=lambda m: f"{label}: {m}")
     row = {"label": label, "shape": list(a.blocks.shape) + [x.shape[1]],
-           "max_abs_err": err}
+           "max_abs_err": hold(label, out, plain)}
     if time_it:
         row["ms"] = time_ms(lambda: spmm_blocked_ell(a.blocks, a.idx, x), 10)
         row["plain_ms"] = time_ms(
             lambda: spmm_blocked_ell_plain(a.blocks, a.idx, x), 3)
         row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
-            spmm_bound(a.blocks, a.idx, x)
+            spmm_bound(work, x)
+        # the padded format's own bytes and FMA, for comparison only
+        row["padded_bytes"] = (a.blocks.numel() + a.idx.numel()) * 4 \
+            + (x.numel() + out.numel()) * 4
         row["padded_flops"] = 2.0 * a.blocks.numel() * x.shape[1]
         row["padded_tflop_per_s"] = row["padded_flops"] / row["ms"] / 1e9
-        row["library_ms"] = None
-        if csr is not None:
-            # the same product's bound from the CSR form: no padding
-            csr_bytes = sum(t.numel() * t.element_size() for t in
-                            (csr.indptr, csr.indices, csr.data, x)) \
-                + out.numel() * out.element_size()
-            row["csr_bytes"] = csr_bytes
-            row["csr_bound_ms"] = max(csr_bytes / HBM_BYTES_PER_S,
-                                      row["flops"] / FP32_FLOP_PER_S) * 1e3
-            lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
-                                          size=csr.shape)
-            ref = torch.sparse.mm(lib, x)
-            torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
-            row["library_ms"] = time_ms(lambda: torch.sparse.mm(lib, x), 10)
+    del out, plain
     torch.cuda.synchronize()
     print(json.dumps(row), flush=True)
     return row
@@ -374,10 +415,11 @@ def main():
     import numpy as np
 
     from repro_torch.data import table1_graph
-    from repro_torch.kernels import (BlockedEll, _build, ops,
-                                     spmm_blocked_ell, ssd_chunked,
-                                     ssd_chunked_plain, swa_attention,
-                                     swa_attention_plain)
+    from repro_torch.kernels import (BlockedEll, CsrOperand, _build,
+                                     csr_to_blocked_ell, ops,
+                                     spmm_blocked_ell, spmm_csr_rows,
+                                     ssd_chunked, ssd_chunked_plain,
+                                     swa_attention, swa_attention_plain)
     from repro_torch.launch.serve_prefill import serve_prefill
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.launch.serve_pipeline import gcn_plain, serve
@@ -402,26 +444,66 @@ def main():
           f"{_build.sources()} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 2) kernel vs plain on the card
-    phase("2. kernels vs their plain versions")
+    # 2) SpMM kernels vs plain on the card
+    phase("2. SpMM kernels vs their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     graph = table1_graph("OA", device=dev)
-    adj = BlockedEll.from_csr(graph, 16, 16, device=dev)
+    V = graph.shape[0]
+    csr = CsrOperand.from_csr(graph, device=dev)
+    blocks, idx = csr_to_blocked_ell(graph, 16, 16)
+    adj = BlockedEll.from_numpy(blocks, idx, V, device=dev)
+    compact = CsrOperand.from_blocked_ell(blocks, idx, V, device=dev)
+    del blocks, idx
     torch.cuda.synchronize()
-    print(f"ogbn-arxiv graph V={graph.shape[0]} nnz={graph.nnz}, blocked-ELL "
-          f"{tuple(adj.blocks.shape)} built in "
+    print(f"ogbn-arxiv graph V={V} nnz={graph.nnz}: CSR operand "
+          f"{csr.nbytes} bytes, blocked-ELL {tuple(adj.blocks.shape)} "
+          f"({adj.blocks.numel() * 4} bytes of tiles); built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    x = torch.randn((graph.shape[0], 128), generator=gen, device=dev)
-    rows = [check_spmm("OA bm=bk=16 N=128", adj, x, time_it=True, csr=graph)]
+    x = torch.randn((V, 128), generator=gen, device=dev)
+    x100 = torch.randn((V, 100), generator=gen, device=dev)
+    csr_rows = [check_csr("OA N=128", csr, x, time_it=True)]
+    oa_csr = csr_rows[0]
+    first, again, from_ell = csr @ x, csr @ x, compact @ x
+    torch.cuda.synchronize()
+    if not (torch.equal(first, again) and torch.equal(first, from_ell)):
+        raise AssertionError("spmm_csr_rows: repeat calls, or the CSR "
+                             "compacted from blocked-ELL, differ at OA")
+    print("[check] OA: two calls bit for bit equal; from_blocked_ell and "
+          "from_csr give the same product bit for bit", flush=True)
+    del first, again, from_ell, compact
+    csr_rows.append(check_csr("OA N=100", csr, x100))
+    rows = [check_spmm("OA bm=bk=16 N=128", adj, x, time_it=True, work=csr)]
     oa = rows[0]
-    rows.append(check_spmm("OA bm=bk=16 N=100", adj,
-                           torch.randn((graph.shape[0], 100), generator=gen,
-                                       device=dev)))
-    del adj, x
+    rows.append(check_spmm("OA bm=bk=16 N=100", adj, x100))
+    del adj, csr, x, x100
     rng = np.random.default_rng(7)
     a = rng.normal(size=(256, 384)).astype(np.float32)
     a[rng.random(a.shape) > 0.08] = 0.0
+    for n in (64, 100, 256):
+        csr_rows.append(check_csr(
+            f"256x384 8% N={n}", CsrOperand.from_csr(
+                csr_from_dense(a, device=dev), device=dev),
+            torch.randn((384, n), generator=gen, device=dev)))
+    ragged = rng.normal(size=(512, 2048)).astype(np.float32)
+    ragged[rng.random(ragged.shape) > 0.02] = 0.0
+    ragged[:100] = 0.0                    # empty rows
+    ragged[300] = 0.0
+    ragged[300, rng.choice(2048, 1000, replace=False)] = \
+        rng.normal(size=1000)             # one row of 1,000 non-zeros
+    one = np.zeros((64, 64), np.float32)
+    one[13, 42] = 3.0
+    rect = rng.normal(size=(1003, 257)).astype(np.float32)
+    rect[rng.random(rect.shape) > 0.05] = 0.0
+    for label, m, n in (("empty rows, a row of 1000 N=128", ragged, 128),
+                        ("empty rows, a row of 1000 N=100", ragged, 100),
+                        ("one non-zero N=128", one, 128),
+                        ("1003x257 5% N=128", rect, 128),
+                        ("1003x257 5% N=100", rect, 100)):
+        csr_rows.append(check_csr(
+            label, CsrOperand.from_csr(csr_from_dense(m, device=dev),
+                                       device=dev),
+            torch.randn((m.shape[1], n), generator=gen, device=dev)))
     for b in (128, 16):
         for n in (64, 100, 256):
             op = BlockedEll.from_csr(csr_from_dense(a, device=dev), b, b,
@@ -448,17 +530,22 @@ def main():
 
     # 3) main path
     phase("3. main path: serve_pipeline on ogbn-arxiv, 8 requests")
+    spmm_csr_rows.launches = 0
     spmm_blocked_ell.launches = 0
     with torch.inference_mode():
         res = serve("OA", 8, device=dev)
     torch.cuda.synchronize()
-    launches = spmm_blocked_ell.launches
+    launches = spmm_csr_rows.launches
+    ell_launches = spmm_blocked_ell.launches
     print(f"[main] {res.out.shape[0]} requests in {res.seconds * 1e3:.3f} ms "
           f"({res.inf_per_s:.3f} inf/s), max err vs plain GCN "
           f"{res.max_err:.3e}; schedule {res.schedule} -> {res.rescheduled} "
-          f"after drift; spmm_blocked_ell launches {launches}", flush=True)
-    if launches != 2 * 8:
-        raise AssertionError(f"expected 16 kernel launches, saw {launches}")
+          f"after drift; spmm_csr_rows launches {launches}, "
+          f"spmm_blocked_ell launches {ell_launches}", flush=True)
+    if launches != 2 * 8 or ell_launches != 0:
+        raise AssertionError(f"expected 16 spmm_csr_rows and 0 "
+                             f"spmm_blocked_ell launches, saw {launches} and "
+                             f"{ell_launches}")
     if tuple(res.out.shape) != (8, 170_000, 128) \
             or not torch.isfinite(res.out).all() \
             or not res.max_err < GCN_MAX_ERR:
@@ -507,6 +594,7 @@ def main():
     # 6) SWA prefill path
     phase(f"6. main path: serve_prefill {PREFILL['arch']} (SWA 4096), "
           f"{PREFILL['batch']} x {PREFILL['prompt_len']} tokens")
+    spmm_csr_rows.launches = 0
     spmm_blocked_ell.launches = 0
     swa_attention.launches = 0
     pre = serve_prefill(PREFILL["arch"], batch=PREFILL["batch"],
@@ -516,16 +604,20 @@ def main():
     cfg = pre.cfg
     print(f"[prefill] {pre.tokens.numel()} tokens in "
           f"{pre.seconds * 1e3:.3f} ms ({pre.tok_per_s:.3f} tok/s); "
-          f"swa_attention launches {swa_launches}, spmm_blocked_ell "
-          f"launches {spmm_blocked_ell.launches}; peak memory "
+          f"swa_attention launches {swa_launches}, spmm_csr_rows launches "
+          f"{spmm_csr_rows.launches}, spmm_blocked_ell launches "
+          f"{spmm_blocked_ell.launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     if (cfg.attention, cfg.window, cfg.n_layers, cfg.d_model) != \
             ("swa", 4096, 36, 2560):
         raise AssertionError(f"not the full qwen3-4b SWA config: {cfg}")
-    if swa_launches != cfg.n_layers:
-        raise AssertionError(f"expected {cfg.n_layers} SWA kernel launches, "
-                             f"saw {swa_launches}")
+    if swa_launches != cfg.n_layers or spmm_csr_rows.launches \
+            or spmm_blocked_ell.launches:
+        raise AssertionError(f"expected {cfg.n_layers} SWA kernel launches "
+                             f"and no SpMM launch, saw {swa_launches}, "
+                             f"{spmm_csr_rows.launches} and "
+                             f"{spmm_blocked_ell.launches}")
     if tuple(pre.logits.shape) != (PREFILL["batch"], 1, 152064) \
             or not torch.isfinite(pre.logits).all():
         raise AssertionError(f"prefill logits are wrong: "
@@ -615,6 +707,7 @@ def main():
           f"({SSD_PREFILL['shape']}), {SSD_PREFILL['batch']} x "
           f"{SSD_PREFILL['prompt_len']} tokens")
     torch.cuda.reset_peak_memory_stats()
+    spmm_csr_rows.launches = 0
     spmm_blocked_ell.launches = 0
     swa_attention.launches = 0
     ssd_chunked.launches = 0
@@ -627,7 +720,8 @@ def main():
     print(f"[prefill] {mam.tokens.numel()} tokens in "
           f"{mam.seconds * 1e3:.3f} ms ({mam.tok_per_s:.3f} tok/s); "
           f"ssd_chunked launches {ssd_launches}, swa_attention launches "
-          f"{swa_attention.launches}, spmm_blocked_ell launches "
+          f"{swa_attention.launches}, spmm_csr_rows launches "
+          f"{spmm_csr_rows.launches}, spmm_blocked_ell launches "
           f"{spmm_blocked_ell.launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
@@ -635,10 +729,13 @@ def main():
             mcfg.ssm_chunk, mcfg.ssm_heads, mcfg.ssm_head_dim) != \
             ("ssm", 48, 1536, 128, 256, 48, 64):
         raise AssertionError(f"not the full mamba2-780m config: {mcfg}")
-    if ssd_launches != mcfg.n_layers or swa_attention.launches != 0:
-        raise AssertionError(f"expected {mcfg.n_layers} SSD and 0 SWA kernel "
-                             f"launches, saw {ssd_launches} and "
-                             f"{swa_attention.launches}")
+    if ssd_launches != mcfg.n_layers or swa_attention.launches \
+            or spmm_csr_rows.launches or spmm_blocked_ell.launches:
+        raise AssertionError(f"expected {mcfg.n_layers} SSD and no SWA or "
+                             f"SpMM kernel launches, saw {ssd_launches}, "
+                             f"{swa_attention.launches}, "
+                             f"{spmm_csr_rows.launches} and "
+                             f"{spmm_blocked_ell.launches}")
     if tuple(mam.logits.shape) != (SSD_PREFILL["batch"], 1, 50432) \
             or not torch.isfinite(mam.logits).all():
         raise AssertionError(f"prefill logits are wrong: "
@@ -688,13 +785,21 @@ def main():
     torch.cuda.synchronize()
 
     kernels = [{
+        "name": "spmm_csr_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spmm_csr_rows.cu",
+        "replaces": "src/repro/kernels/spmm.py:72", "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in csr_rows),
+        "ms": oa_csr["ms"], "plain_ms": oa_csr["plain_ms"],
+        "bound_ms": oa_csr["bound_ms"], "bound_by": oa_csr["bound_by"],
+        "library_ms": oa_csr["library_ms"]}, {
         "name": "spmm_blocked_ell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_blocked_ell.cu",
-        "replaces": "src/repro/kernels/spmm.py:72", "launches": launches,
+        "replaces": "src/repro/kernels/spmm.py:72",
+        "launches": ell_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": oa["ms"], "plain_ms": oa["plain_ms"],
         "bound_ms": oa["bound_ms"], "bound_by": oa["bound_by"],
-        "library_ms": oa["library_ms"]}, {
+        "library_ms": oa_csr["library_ms"]}, {
         "name": "swa_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa.py:81", "launches": swa_launches,

@@ -1,7 +1,10 @@
 """Hand-written Hopper kernels for the perf-critical hot spots:
 
-  * ``spmm`` — blocked-ELL SpMM (CUDA C++, ``csrc/spmm_blocked_ell.cu``),
-    the port of the TPU kernel ``repro/kernels/spmm.py:spmm_blocked_ell``
+  * ``spmm`` — two SpMM kernels for the TPU kernel
+    ``repro/kernels/spmm.py:spmm_blocked_ell``: the row-wise CSR kernel
+    (CUDA C++, ``csrc/spmm_csr_rows.cu``), the GCN path's SpMM, and the
+    port of the TPU kernel's literal blocked-ELL interface (CUDA C++,
+    ``csrc/spmm_blocked_ell.cu``), off the path
   * ``swa`` — banded sliding-window flash attention (CUDA C++,
     ``csrc/swa_attention.cu``), the port of the TPU kernel
     ``repro/kernels/swa.py:swa_attention_pallas``
@@ -14,8 +17,9 @@ holds the SpMM and SWA oracles (the SSD's is its plain version, as the JAX
 package's is the model zoo's ``ssd_chunked``). ``_build`` compiles the CUDA sources at first use.
 """
 from .spmm import (csr_to_blocked_ell, spmm_blocked_ell,
-                   spmm_blocked_ell_plain, to_blocked_ell)
+                   spmm_blocked_ell_plain, spmm_csr_rows, spmm_csr_rows_plain,
+                   to_blocked_ell)
 from .swa import swa_attention, swa_attention_plain
 from .ssd import ssd_chunked, ssd_chunked_plain
-from .ops import BlockedEll, spmm_op, swa_attention_op
+from .ops import BlockedEll, CsrOperand, spmm_op, swa_attention_op
 from . import ref

@@ -1,15 +1,20 @@
-"""Blocked-ELL SpMM: the host-side format and the hand-written Hopper kernel.
+"""SpMM: the host-side formats and the hand-written Hopper kernels.
 
-The format is the one the JAX package's Pallas kernel consumes: each
-(bm x bk) tile with any non-zero is stored densely, padded to a fixed
-number of tiles per block-row (the ELL width); padding tiles point at
-column block 0 with zero values. ``csr_to_blocked_ell`` builds it straight
-from CSR, without the dense matrix (which at ogbn-arxiv size would be
-170,000² floats).
+Two kernels compute ``out = A @ X`` for a sparse A and a dense float32 X:
 
-``spmm_blocked_ell`` launches ``csrc/spmm_blocked_ell.cu`` on a CUDA tensor
-and uses ``spmm_blocked_ell_plain`` on a CPU tensor; it never falls back
-from one to the other. ``spmm_blocked_ell.launches`` counts kernel launches.
+* ``spmm_csr_rows`` (``csrc/spmm_csr_rows.cu``) reads A as CSR, its
+  non-zeros in row order, one warp per output row. It is the GCN path's
+  SpMM (``ops.CsrOperand``).
+* ``spmm_blocked_ell`` (``csrc/spmm_blocked_ell.cu``) takes the TPU
+  kernel's literal operand: each (bm x bk) tile with any non-zero stored
+  densely, padded to a fixed number of tiles per block-row (the ELL
+  width); padding tiles point at column block 0 with zero values.
+  ``csr_to_blocked_ell`` builds it straight from CSR, without the dense
+  matrix (which at ogbn-arxiv size would be 170,000² floats).
+
+Each wrapper launches its kernel on a CUDA tensor and uses its plain
+PyTorch version (``*_plain``) on a CPU tensor; it never falls back from one
+to the other. ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..sparse import CSR, spmm_csr
 from . import _build
 
 KERNEL_BM = (16, 32, 64, 128)    # tile heights the CUDA kernel is built for
@@ -80,7 +86,7 @@ def csr_to_blocked_ell(csr, bm: int = 16, bk: int = 16):
 
 
 # ---------------------------------------------------------------------------
-# SpMM: plain PyTorch version and the kernel's wrapper
+# blocked-ELL SpMM: plain PyTorch version and the kernel's wrapper
 # ---------------------------------------------------------------------------
 def _check(blocks, idx, x):
     if blocks.dim() != 4 or idx.dim() != 2 or x.dim() != 2:
@@ -160,3 +166,80 @@ def spmm_blocked_ell(blocks, idx, x):
 
 
 spmm_blocked_ell.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row-wise CSR SpMM: plain PyTorch version and the kernel's wrapper
+# ---------------------------------------------------------------------------
+INT32_MAX = 2**31 - 1
+
+
+def _check_csr(indptr, indices, values, x):
+    if indptr.dim() != 1 or indices.dim() != 1 or values.dim() != 1 \
+            or x.dim() != 2 or indptr.numel() < 1:
+        raise ValueError("want indptr (M+1,), indices (nnz,), values (nnz,), "
+                         f"x (K, N); got {tuple(indptr.shape)}, "
+                         f"{tuple(indices.shape)}, {tuple(values.shape)}, "
+                         f"{tuple(x.shape)}")
+    if indices.shape != values.shape:
+        raise ValueError(f"indices {tuple(indices.shape)} and values "
+                         f"{tuple(values.shape)} differ")
+    if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
+        raise TypeError(f"indptr and indices must be int32; got "
+                        f"{indptr.dtype}, {indices.dtype}")
+    if values.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"float32 only; got values {values.dtype}, "
+                        f"x {x.dtype}")
+    if not (indptr.device == indices.device == values.device == x.device):
+        raise ValueError("indptr, indices, values and x must be on one "
+                         "device")
+    if not all(t.is_contiguous() for t in (indptr, indices, values, x)):
+        raise ValueError("indptr, indices, values and x must be contiguous")
+    if max(x.shape) > INT32_MAX or indptr.numel() - 1 > INT32_MAX:
+        raise ValueError(f"M, K and N must fit int32; got M = "
+                         f"{indptr.numel() - 1}, x {tuple(x.shape)}")
+
+
+def spmm_csr_rows_plain(indptr, indices, values, x):
+    """Plain PyTorch version, ``sparse.spmm_csr``: expand the rows, gather
+    the X rows by column, scale by the values and sum them per row with
+    ``index_add_``."""
+    shape = (indptr.numel() - 1, x.shape[0])
+    return spmm_csr(CSR(indptr.long(), indices.long(), values, shape), x)
+
+
+@functools.cache
+def _csr_kernel_fn():
+    fn = _build.load("spmm_csr_rows").spmm_csr_rows_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def spmm_csr_rows(indptr, indices, values, x):
+    """CSR (M, K)  @  (K, N) -> (M, N), float32; K is ``x.shape[0]``.
+
+    On a CUDA tensor: the hand-written kernel, on the current stream. On a
+    CPU tensor: ``spmm_csr_rows_plain``. Column indices must lie in
+    [0, K) and each row's columns are summed in the order stored."""
+    _check_csr(indptr, indices, values, x)
+    if x.device.type == "cpu":
+        return spmm_csr_rows_plain(indptr, indices, values, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    M = indptr.numel() - 1
+    K, N = x.shape
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _csr_kernel_fn()(indptr.data_ptr(), indices.data_ptr(),
+                               values.data_ptr(), x.data_ptr(),
+                               out.data_ptr(), M, K, N, stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_csr_rows launch failed: cudaError {err}")
+    spmm_csr_rows.launches += 1
+    return out
+
+
+spmm_csr_rows.launches = 0

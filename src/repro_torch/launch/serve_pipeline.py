@@ -7,7 +7,8 @@ pipeline runtime with a DYPE-chosen schedule (the port of
    characteristics.
 2. The 2-layer GCN (hidden 128) is deployed as a 4-stage pipeline
    SpMM1 | GeMM1+relu | SpMM2 | GeMM2, one CUDA stream per stage; the SpMM
-   stages run the hand-written blocked-ELL kernel over the pre-loaded graph.
+   stages run the hand-written row-wise CSR kernel over the pre-loaded
+   graph (an int32 CSR operand on the device).
 3. A stream of ``--micro`` feature matrices (V, F) is served and checked
    against a plain-path GCN (CSR gather + ``index_add_``).
 4. The data drifts (8x the edges on the same vertices) and DYPE reschedules.
@@ -27,12 +28,11 @@ from ..core import (DATASETS, DynamicScheduler, GraphDataset, PerfModel,
                     gcn_workload, paper_system)
 from ..data import scaled_dataset, table1_graph
 from ..device import resolve_device
-from ..kernels import BlockedEll
+from ..kernels import CsrOperand
 from ..models import init_gcn_params
 from ..runtime import PipelineExecutor
 from ..sparse import spmm_csr
 
-BLOCK = 16            # bm = bk of the blocked-ELL operand
 HIDDEN = 128          # the paper's GCN width
 SEED = 0              # graph, weights and requests
 MAX_ERR = 1e-3        # pipeline vs plain-path GCN (examples/serve_pipeline.py)
@@ -86,10 +86,9 @@ def serve(dataset: str = "OA", n_micro: int = 8, *, scale: float = 1.0,
     #    (SpMM1 | GeMM1 | SpMM2 | GeMM2), one stream per stage
     graph = table1_graph(dataset, scale=scale, seed=SEED, device=dev)
     V = graph.shape[0]
-    adj = BlockedEll.from_csr(graph, BLOCK, BLOCK, device=dev)
-    print(f"[deploy] graph V={V} nnz={graph.nnz}; blocked-ELL "
-          f"{tuple(adj.blocks.shape)} "
-          f"({adj.blocks.numel() * 4 / 1e9:.3f} GB)")
+    adj = CsrOperand.from_csr(graph, device=dev)
+    print(f"[deploy] graph V={V} nnz={graph.nnz}; CSR operand "
+          f"{adj.nbytes} bytes")
     params = init_gcn_params(F, HIDDEN, generator=torch.Generator()
                              .manual_seed(SEED), device=dev)
     w1, w2 = params[0]["theta"], params[1]["theta"]

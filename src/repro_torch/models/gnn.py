@@ -5,10 +5,10 @@ the kernel chain the DYPE scheduler reasons about:
   GCN layer:  X' = Â X Θ            -> SpMM (Â X) then GeMM (· Θ)
   GIN layer:  X' = MLP(A' X)        -> SpMM then ``mlp_layers`` GeMMs
 
-The adjacency is a ``BlockedEll`` operand prepared once (the paper's
-pre-loaded static graph), and every SpMM goes through the hand-written
-blocked-ELL kernel (its plain version on CPU tensors). The GeMMs are
-``torch.matmul``.
+The adjacency is an operand prepared once on the device (the paper's
+pre-loaded static graph): a ``CsrOperand``, whose SpMM is the hand-written
+row-wise CSR kernel, or a ``BlockedEll``, on the blocked-ELL kernel (each
+kernel's plain version on CPU tensors). The GeMMs are ``torch.matmul``.
 
 Parameters are lists of dicts shaped like the JAX package's
 (``[{"theta": (d_in, hidden)}]`` for GCN, ``[{"mlp": [...], "eps": e}]``
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..kernels import BlockedEll
+from ..kernels import BlockedEll, CsrOperand
 
 
 def _normal(shape, scale, generator, device):
@@ -80,10 +80,11 @@ class GCN(nn.Module):
         self.thetas = nn.ParameterList(
             nn.Parameter(p["theta"], requires_grad=False) for p in params)
 
-    def forward(self, a: BlockedEll, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, a: CsrOperand | BlockedEll,
+                x: torch.Tensor) -> torch.Tensor:
         h = x
         for i, theta in enumerate(self.thetas):
-            h = a @ h                        # SpMM_i (blocked-ELL kernel)
+            h = a @ h                        # SpMM_i (the operand's kernel)
             h = h @ theta                    # GeMM_i
             if i < len(self.thetas) - 1:
                 h = torch.relu(h)
@@ -103,7 +104,8 @@ class GIN(nn.Module):
                                    for w in p["mlp"])
             self.mlps.append(mlp)
 
-    def forward(self, a: BlockedEll, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, a: CsrOperand | BlockedEll,
+                x: torch.Tensor) -> torch.Tensor:
         h = x
         for mlp, eps in zip(self.mlps, self.eps):
             z = a @ h + eps * h                     # SpMM (A' = A + (1+eps)I)

@@ -1,7 +1,8 @@
 """Sparse matrix formats.
 
-CSR is the exchange format (matches the paper's Sextans input); the Hopper
-kernel consumes blocked-ELL (see kernels/spmm.py). ``random_graph_csr``
+CSR is the exchange format (matches the paper's Sextans input); the GCN
+path's Hopper kernel reads it as int32 CSR (``kernels.CsrOperand``), and
+the blocked-ELL kernel reads the TPU kernel's tiles (see kernels/spmm.py). ``random_graph_csr``
 generates Table-I-like synthetic graphs (uniform edges + self loops,
 degree-normalized values — the GCN Â matrix) with the same numpy stream as
 the JAX package, so both build the same graph from the same seed.

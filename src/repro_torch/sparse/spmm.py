@@ -2,7 +2,8 @@
 
 ``spmm_csr`` is the plain gather/``index_add_`` path: the oracle for the
 GNN models and the plain-path GCN that the serving check compares with.
-The hand-written blocked-ELL kernel (kernels/spmm.py) is the GCN's SpMM.
+The hand-written row-wise CSR kernel (kernels/spmm.py:spmm_csr_rows) is
+the GCN's SpMM.
 
 On the card ``index_add_`` accumulates with atomics, so the order of each
 row's sum changes from run to run; comparisons with it use a float32

@@ -57,7 +57,7 @@ def _entry_points():
 
     from repro_torch import resolve_device
     from repro_torch.data import table1_graph
-    from repro_torch.kernels import BlockedEll, ssd_chunked
+    from repro_torch.kernels import BlockedEll, CsrOperand, ssd_chunked
     from repro_torch.configs import get_smoke
     from repro_torch.launch import serve_prefill as prefill
     from repro_torch.launch.serve_pipeline import main, serve
@@ -78,6 +78,10 @@ def _entry_points():
         "csr_from_dense": lambda: csr_from_dense(a),
         "table1_graph": lambda: table1_graph("OA", scale=1e-4),
         "BlockedEll.from_numpy": lambda: BlockedEll.from_numpy(
+            a.reshape(1, 1, 16, 16), np.zeros((1, 1), np.int32), 16),
+        "CsrOperand.from_csr": lambda: CsrOperand.from_csr(
+            csr_from_dense(a, device="cpu")),
+        "CsrOperand.from_blocked_ell": lambda: CsrOperand.from_blocked_ell(
             a.reshape(1, 1, 16, 16), np.zeros((1, 1), np.int32), 16),
         "init_gcn_params": lambda: init_gcn_params(8, 8),
         "init_gin_params": lambda: init_gin_params(8, 8),

@@ -1,10 +1,12 @@
-"""Port blocked-ELL SpMM vs the reference Pallas kernel (interpret mode, as
-tests/test_kernels.py runs it) and the oracles.
+"""Port SpMM (blocked-ELL and row-wise CSR) vs the reference Pallas kernel
+(interpret mode, as tests/test_kernels.py runs it) and the oracles.
 
 Tolerances: the kernel tests' own atol 1e-3 / rtol 1e-4 against the
-float64 oracle; format conversion is exact. The CUDA kernel is compared
-with its plain version on the card (marked ``cuda``) at atol/rtol 1e-4:
-both sum fp32 products, in different orders.
+float64 oracle; the CSR plain version against the Pallas kernel at
+atol/rtol 1e-4 (tests/test_kernels.py:89-143's, both float32); format
+conversion is exact. The CUDA kernels are compared with their plain
+versions on the card (marked ``cuda``) at atol/rtol 1e-4: both sum fp32
+products, in different orders.
 """
 import types
 
@@ -13,9 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (BlockedEll, csr_to_blocked_ell, ref,
-                                 spmm_blocked_ell, spmm_blocked_ell_plain,
-                                 spmm_op, to_blocked_ell)
+from repro_torch.kernels import (BlockedEll, CsrOperand, csr_to_blocked_ell,
+                                 ref, spmm_blocked_ell, spmm_blocked_ell_plain,
+                                 spmm_csr_rows, spmm_csr_rows_plain, spmm_op,
+                                 to_blocked_ell)
 from repro_torch.sparse import csr_from_dense, random_graph_csr
 
 
@@ -176,6 +179,133 @@ def test_wrapper_raises_on_bad_shapes():
 
 
 # ---------------------------------------------------------------------------
+# row-wise CSR SpMM: the operand, the plain version and the wrapper
+# ---------------------------------------------------------------------------
+CSR_SHAPES = [(256, 256, 128, 0.02), (256, 384, 100, 0.08),
+              (512, 768, 256, 0.05), (384, 256, 64, 0.30),
+              (128, 512, 100, 0.001)]
+
+
+def _csr_args(op):
+    return op.indptr, op.indices, op.values
+
+
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("M,K,N,density", CSR_SHAPES)
+def test_spmm_csr_rows_plain_matches_pallas_kernel(jref, M, K, N, density,
+                                                   b):
+    jnp = jref.jnp
+    a, rng = _sparse(M, K, density, M + K + N)
+    x = rng.normal(size=(K, N)).astype(np.float32)
+    blocks, idx = jref.to_blocked_ell(a, b, b)
+    ref_out = np.asarray(jref.spmm_blocked_ell(
+        jnp.asarray(blocks), jnp.asarray(idx), jnp.asarray(x),
+        interpret=True))
+    op = CsrOperand.from_csr(csr_from_dense(a, device="cpu"), device="cpu")
+    assert op.shape == (M, K) and op.indptr.dtype == torch.int32
+    out = spmm_csr_rows_plain(*_csr_args(op), _t(x)).numpy()
+    np.testing.assert_allclose(out, ref_out, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(out, a.astype(np.float64) @ x, atol=1e-4,
+                               rtol=1e-4)
+    # the wrapper and the operand take the plain version on a CPU tensor
+    np.testing.assert_array_equal(
+        spmm_csr_rows(*_csr_args(op), _t(x)).numpy(), out)
+    np.testing.assert_array_equal((op @ _t(x)).numpy(), out)
+
+
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("n,e,seed", [(256, 1500, 3), (1024, 3000, 9)])
+def test_csr_operand_from_blocked_ell_matches_from_csr(n, e, seed, b):
+    g = random_graph_csr(n, e, seed=seed, device="cpu")
+    blocks, idx = csr_to_blocked_ell(g, b, b)
+    a = CsrOperand.from_blocked_ell(blocks, idx, n, device="cpu")
+    c = CsrOperand.from_csr(g, device="cpu")
+    assert a.shape == c.shape == (n, n) and a.nnz == c.nnz == g.nnz
+    for f in ("indptr", "indices", "values"):
+        assert getattr(a, f).dtype == getattr(c, f).dtype
+        assert torch.equal(getattr(a, f), getattr(c, f)), f
+    assert c.nbytes == (n + 1) * 4 + g.nnz * 8
+
+
+def test_csr_operand_from_blocked_ell_sums_repeated_tiles():
+    blocks = np.zeros((1, 3, 16, 16), np.float32)
+    blocks[0, 0, 2, 3] = 1.5
+    blocks[0, 1, 2, 3] = 2.0              # the same tile again: summed
+    blocks[0, 2, 0, 1] = -1.0
+    op = CsrOperand.from_blocked_ell(blocks, np.array([[1, 1, 0]]), 32,
+                                     device="cpu")
+    x = torch.arange(32 * 3, dtype=torch.float32).reshape(32, 3)
+    np.testing.assert_allclose(
+        (op @ x).numpy(), ref.spmm_ref(blocks, np.array([[1, 1, 0]]), x),
+        rtol=1e-6)
+    assert op.indices.tolist() == [1, 19] and op.values.tolist() == [-1, 3.5]
+
+
+@pytest.mark.parametrize("N", [64, 100])
+def test_spmm_csr_rows_empty_rows_and_long_row(N):
+    rng = np.random.default_rng(N)
+    a = np.zeros((96, 512), np.float32)
+    a[5, rng.choice(512, 300, replace=False)] = rng.normal(size=300)
+    a[40, 7] = 2.0
+    a[95, :33] = rng.normal(size=33)      # one more than a warp's batch
+    x = rng.normal(size=(512, N)).astype(np.float32)
+    op = CsrOperand.from_csr(csr_from_dense(a, device="cpu"), device="cpu")
+    out = (op @ _t(x)).numpy()
+    empty = np.abs(a).sum(axis=1) == 0
+    assert empty.sum() == 93 and np.all(out[empty] == 0)
+    np.testing.assert_allclose(out, a.astype(np.float64) @ x, atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("bad,exc", [
+    ("indices64", TypeError), ("indptr64", TypeError),
+    ("values64", TypeError), ("x64", TypeError),
+    ("x_noncontiguous", ValueError), ("mixed_devices", ValueError),
+    ("nnz_mismatch", ValueError)])
+def test_csr_wrapper_raises(bad, exc):
+    a, rng = _sparse(64, 96, 0.1, 2)
+    op = CsrOperand.from_csr(csr_from_dense(a, device="cpu"), device="cpu")
+    indptr, indices, values = _csr_args(op)
+    x = _t(rng.normal(size=(96, 32)).astype(np.float32))
+    if bad == "indices64":
+        indices = indices.long()
+    elif bad == "indptr64":
+        indptr = indptr.long()
+    elif bad == "values64":
+        values = values.double()
+    elif bad == "x64":
+        x = x.double()
+    elif bad == "x_noncontiguous":
+        x = _t(rng.normal(size=(32, 96)).astype(np.float32)).t()
+    elif bad == "mixed_devices":
+        x = x.to("meta")
+    else:
+        values = values[:-1]
+    with pytest.raises(exc):
+        spmm_csr_rows(indptr, indices, values, x)
+
+
+def test_csr_operand_rejects_bad_input():
+    with pytest.raises(ValueError):          # K does not fit int32
+        CsrOperand.from_numpy(np.zeros(2, np.int64), np.zeros(0, np.int64),
+                              np.zeros(0, np.float32), (1, 2**31),
+                              device="cpu")
+    with pytest.raises(ValueError):          # column out of range
+        CsrOperand.from_numpy(np.array([0, 1]), np.array([4]),
+                              np.ones(1, np.float32), (1, 4), device="cpu")
+    with pytest.raises(ValueError):          # indptr does not end at nnz
+        CsrOperand.from_numpy(np.array([0, 2]), np.array([0]),
+                              np.ones(1, np.float32), (1, 4), device="cpu")
+    with pytest.raises(ValueError):          # idx out of range
+        CsrOperand.from_blocked_ell(np.ones((1, 1, 16, 16), np.float32),
+                                    np.full((1, 1), 2), 32, device="cpu")
+    op = CsrOperand.from_csr(csr_from_dense(np.eye(16, dtype=np.float32),
+                                            device="cpu"), device="cpu")
+    with pytest.raises(ValueError):          # x rows != K
+        op @ torch.zeros((15, 4))
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel (runs only where there is a card)
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -201,3 +331,23 @@ def test_cuda_kernel_matches_plain(cuda, b, N):
     plain = spmm_blocked_ell_plain(*args)
     torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
     assert torch.all(out[:b] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 100, 128, 256])
+def test_cuda_csr_kernel_matches_plain(cuda, N):
+    a, rng = _sparse(300, 700, 0.05, N)
+    a[:17] = 0.0                                   # empty rows
+    a[200, :600] = rng.normal(size=600)            # a row of 600 non-zeros
+    x = rng.normal(size=(700, N)).astype(np.float32)
+    op = CsrOperand.from_csr(csr_from_dense(a, device="cpu"), device=cuda)
+    xc = _t(x).to(cuda)
+    before = spmm_csr_rows.launches
+    out = op @ xc
+    again = op @ xc
+    torch.cuda.synchronize()
+    assert spmm_csr_rows.launches == before + 2
+    assert torch.equal(out, again)                 # no atomics
+    plain = spmm_csr_rows_plain(*_csr_args(op), xc)
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+    assert torch.all(out[:17] == 0)

@@ -34,9 +34,7 @@ import sys
 import time
 from pathlib import Path
 
-from profile_torch_serve import _union_us
-
-GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "s16816", "s1688")
+from profile_torch_serve import GEMM_MARKS, _union_us
 
 
 def kernel_class(name: str) -> str:
