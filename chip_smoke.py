@@ -24,22 +24,27 @@ raises and the script exits non-zero:
    CSR kernel, 0 of the blocked-ELL kernel);
 4. check the served output against a CPU computation of the same GCN on the
    same inputs;
-5. hold the banded SWA kernel against its plain version at the prefill
-   path's shape (q (2, 32, 16384, 128), k/v (2, 8, 16384, 128), window
-   4096, read in place from (B, S, H, D) activations; float32, then bf16)
-   and at edge shapes (S, window, D, GQA group, float32 and bf16), with
-   the same numbers; the yardstick is PyTorch's memory-efficient SDPA with
-   the band as a mask;
+5. hold the two banded SWA kernels against their plain version: the
+   wgmma kernel (bf16, D 64/128; the prefill path's) and the FMA kernel
+   (float32, and bf16 with D 256), each where ``swa_attention`` routes,
+   at the prefill path's shape (q (2, 32, 16384, 128), k/v (2, 8, 16384,
+   128), window 4096, read in place from (B, S, H, D) activations;
+   float32, then bf16) and at edge shapes (S/window (256,128), (384,128),
+   (512,256), (256,256), (128,128); D 64/128; GQA group 1/4/8; float32
+   and bf16; and D 256), with the same numbers; on the bf16 main-shape
+   input the wgmma kernel, the FMA kernel and the yardstick, PyTorch's
+   memory-efficient SDPA with the band as a mask, are timed, and the
+   wgmma kernel's registers, spills and shared memory are recorded;
 6. drive the SWA prefill path: qwen3-4b with sliding-window attention
    (window 4096) at full width and depth, 2 requests x 16,384 tokens,
-   launch counters set to 0 just before and read just after (36 launches,
-   0 of either SpMM kernel);
+   launch counters set to 0 just before and read just after (36 launches
+   of the wgmma kernel, 0 of the FMA kernel, 0 of either SpMM kernel);
 7. check the served prefill against the plain attention: rerun the served
    forward with every kernel call also computed by the plain version on
    the same inputs and held to it (one bf16 ulp), which must give the
    served logits bit for bit; then run a float32 copy of the model with
-   the kernel and with the plain attention, whose logits must agree to
-   1e-4 of the largest and give the same greedy tokens;
+   the FMA kernel and with the plain attention, whose logits must agree
+   to 1e-4 of the largest and give the same greedy tokens;
 8. hold the SSD chunk-scan kernel against its plain version at the mamba2
    prefill path's shape (x (4, 32768, 48, 64), B/C (4, 32768, 128), chunk
    256, read in place as strided views of one (b, L, 3328) conv output;
@@ -215,6 +220,29 @@ def swa_bound(B, H, KV, S, D, window, esize):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def ptxas_info(log, kernel):
+    """Registers, spills and stack of each instantiation of ``kernel`` in an
+    ``nvcc -Xptxas -v`` log, keyed ``kernel<first template argument>``."""
+    import re
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            if kernel in m.group(1):
+                targs = re.search(r"ILi(\d+)E", m.group(1))
+                name = f"{kernel}<{targs.group(1)}>" if targs else kernel
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            info.setdefault(name, {})["registers"] = int(m.group(1))
+        elif name and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", line)):
+            info.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+    return info
+
+
 def hold_swa(label, out, plain):
     """Hold an SWA kernel output to the plain version's on the same inputs
     (SWA_TOL); returns the max abs error."""
@@ -228,28 +256,51 @@ def hold_swa(label, out, plain):
 
 
 def check_swa(label, q, k, v, window, *, time_it=False):
-    """SWA kernel vs plain version on the card for one input; returns a
-    dict of the numbers measured."""
+    """The SWA kernel that ``swa_attention`` routes this input to vs the
+    plain version on the card; with ``time_it`` (a bf16 input, which the
+    wgmma kernel takes) also the FMA kernel on the same input, held to the
+    plain version too, and the times of both kernels, the plain version
+    and the library yardstick, with the bound. Returns a dict of the
+    numbers measured."""
     import torch
-    from repro_torch.kernels import swa_attention, swa_attention_plain
+    from repro_torch.kernels import (swa, swa_attention, swa_attention_fma,
+                                     swa_attention_plain)
     D = q.shape[-1]
     scale = D ** -0.5
+    route = swa._route(q.dtype, D)
+    kernel = swa._KERNELS[route]
+    n0 = kernel.launches
     out = swa_attention(q, k, v, window=window, scale=scale)
     plain = swa_attention_plain(q, k, v, window=window, scale=scale)
     torch.cuda.synchronize()
+    if kernel.launches != n0 + 1:
+        raise AssertionError(f"{label}: swa_attention did not launch the "
+                             f"{route} kernel")
     err = hold_swa(label, out, plain)
-    row = {"label": label, "q": list(q.shape), "kv": list(k.shape),
-           "window": window, "dtype": str(q.dtype), "max_abs_err": err}
+    row = {"label": label, "kernel": route, "q": list(q.shape),
+           "kv": list(k.shape), "window": window, "dtype": str(q.dtype),
+           "max_abs_err": err}
     if time_it:
         B, H, S, _ = q.shape
+        fma = swa_attention_fma(q, k, v, window=window, scale=scale)
+        torch.cuda.synchronize()
+        row["fma_max_abs_err"] = hold_swa(f"{label} (FMA kernel)", fma, plain)
+        del fma
         row["ms"] = time_ms(
-            lambda: swa_attention(q, k, v, window=window, scale=scale), 10)
+            lambda: kernel(q, k, v, window=window, scale=scale), 10)
+        row["fma_ms"] = time_ms(
+            lambda: swa_attention_fma(q, k, v, window=window, scale=scale),
+            10)
         row["plain_ms"] = time_ms(
             lambda: swa_attention_plain(q, k, v, window=window, scale=scale),
             3)
         row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
             swa_bound(B, H, k.shape[1], S, D, window, q.element_size())
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
+        # the wgmma kernel issues p.v twice (hi and lo parts of P)
+        row["issued_tflop_per_s"] = 1.5 * row["tflop_per_s"]
+        row["fma_tflop_per_s"] = row["flops"] / row["fma_ms"] / 1e9
         row.update(sdpa_yardstick(q, k, v, window, scale, out))
     torch.cuda.synchronize()
     print(json.dumps(row), flush=True)
@@ -418,8 +469,10 @@ def main():
     from repro_torch.kernels import (BlockedEll, CsrOperand, _build,
                                      csr_to_blocked_ell, ops,
                                      spmm_blocked_ell, spmm_csr_rows,
-                                     ssd_chunked, ssd_chunked_plain,
-                                     swa_attention, swa_attention_plain)
+                                     ssd_chunked, ssd_chunked_plain, swa,
+                                     swa_attention, swa_attention_fma,
+                                     swa_attention_plain,
+                                     swa_attention_wgmma)
     from repro_torch.launch.serve_prefill import serve_prefill
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.launch.serve_pipeline import gcn_plain, serve
@@ -577,9 +630,19 @@ def main():
     swa_rows.append(check_swa(f"prefill S={S} window={W} bf16 (B,S,H,D) "
                               f"views", q, k, v, W, time_it=True))
     main_swa = swa_rows[-1]
+    if main_swa["kernel"] != "wgmma":
+        raise AssertionError("the bf16 prefill shape is not routed to the "
+                             "wgmma kernel")
     del q, k, v
+    wgmma_build = {
+        "ptxas": ptxas_info(logs.get("swa_attention_wgmma", ""),
+                           "swa_attention_wgmma_kernel"),
+        "dynamic_smem_bytes": {d_: swa.wgmma_smem_bytes(d_)
+                               for d_ in swa.WGMMA_D}}
+    print(json.dumps({"swa_attention_wgmma build": wgmma_build}), flush=True)
     edges = [(s_, w_, d_, g_) for s_, w_ in ((256, 128), (384, 128),
-                                             (512, 256), (256, 256))
+                                             (512, 256), (256, 256),
+                                             (128, 128))
              for d_ in (64, 128) for g_ in (1, 4, 8)] + [(512, 256, 256, 8)]
     for dtype in (torch.float32, torch.bfloat16):
         for s_, w_, d_, g_ in edges:
@@ -597,14 +660,20 @@ def main():
     spmm_csr_rows.launches = 0
     spmm_blocked_ell.launches = 0
     swa_attention.launches = 0
+    swa_attention_wgmma.launches = 0
+    swa_attention_fma.launches = 0
     pre = serve_prefill(PREFILL["arch"], batch=PREFILL["batch"],
                         prompt_len=PREFILL["prompt_len"], device=dev)
     torch.cuda.synchronize()
     swa_launches = swa_attention.launches
+    wgmma_launches = swa_attention_wgmma.launches
+    fma_launches = swa_attention_fma.launches
     cfg = pre.cfg
     print(f"[prefill] {pre.tokens.numel()} tokens in "
           f"{pre.seconds * 1e3:.3f} ms ({pre.tok_per_s:.3f} tok/s); "
-          f"swa_attention launches {swa_launches}, spmm_csr_rows launches "
+          f"swa_attention launches {swa_launches} (swa_attention_wgmma "
+          f"{wgmma_launches}, swa_attention_fma {fma_launches}), "
+          f"spmm_csr_rows launches "
           f"{spmm_csr_rows.launches}, spmm_blocked_ell launches "
           f"{spmm_blocked_ell.launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
@@ -612,10 +681,13 @@ def main():
     if (cfg.attention, cfg.window, cfg.n_layers, cfg.d_model) != \
             ("swa", 4096, 36, 2560):
         raise AssertionError(f"not the full qwen3-4b SWA config: {cfg}")
-    if swa_launches != cfg.n_layers or spmm_csr_rows.launches \
+    if swa_launches != cfg.n_layers or wgmma_launches != cfg.n_layers \
+            or fma_launches or spmm_csr_rows.launches \
             or spmm_blocked_ell.launches:
-        raise AssertionError(f"expected {cfg.n_layers} SWA kernel launches "
-                             f"and no SpMM launch, saw {swa_launches}, "
+        raise AssertionError(f"expected {cfg.n_layers} launches of the "
+                             f"wgmma SWA kernel, none of the FMA one and no "
+                             f"SpMM launch, saw {wgmma_launches} and "
+                             f"{fma_launches} of {swa_launches}, "
                              f"{spmm_csr_rows.launches} and "
                              f"{spmm_blocked_ell.launches}")
     if tuple(pre.logits.shape) != (PREFILL["batch"], 1, 152064) \
@@ -643,11 +715,11 @@ def main():
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     params32 = tree_map(lambda t: t.float(), pre.params)
     step32 = make_prefill_step(cfg32, device=dev)
-    n0 = swa_attention.launches
+    n0 = swa_attention_fma.launches
     with torch.inference_mode():
         kern = step32(params32, {"tokens": pre.tokens})
-        if swa_attention.launches != n0 + cfg.n_layers:
-            raise AssertionError("the float32 forward missed the kernel")
+        if swa_attention_fma.launches != n0 + cfg.n_layers:
+            raise AssertionError("the float32 forward missed the FMA kernel")
         with mock.patch.object(ops, "swa_attention", swa_attention_plain):
             plain = step32(params32, {"tokens": pre.tokens})
     torch.cuda.synchronize()
@@ -710,6 +782,8 @@ def main():
     spmm_csr_rows.launches = 0
     spmm_blocked_ell.launches = 0
     swa_attention.launches = 0
+    swa_attention_wgmma.launches = 0
+    swa_attention_fma.launches = 0
     ssd_chunked.launches = 0
     mam = serve_prefill(SSD_PREFILL["arch"], shape=SSD_PREFILL["shape"],
                         batch=SSD_PREFILL["batch"],
@@ -800,11 +874,22 @@ def main():
         "ms": oa["ms"], "plain_ms": oa["plain_ms"],
         "bound_ms": oa["bound_ms"], "bound_by": oa["bound_by"],
         "library_ms": oa_csr["library_ms"]}, {
-        "name": "swa_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
-        "replaces": "src/repro/kernels/swa.py:81", "launches": swa_launches,
-        "max_abs_err": max([r["max_abs_err"] for r in swa_rows] + errs),
+        "name": "swa_attention_wgmma", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/swa.py:81",
+        "launches": wgmma_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in swa_rows
+                            if r["kernel"] == "wgmma"] + errs),
         "ms": main_swa["ms"], "plain_ms": main_swa["plain_ms"],
+        "bound_ms": main_swa["bound_ms"], "bound_by": main_swa["bound_by"],
+        "library_ms": main_swa["library_ms"]}, {
+        "name": "swa_attention_fma", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa.py:81", "launches": fma_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in swa_rows
+                            if r["kernel"] == "fma"]
+                           + [main_swa["fma_max_abs_err"]]),
+        "ms": main_swa["fma_ms"], "plain_ms": main_swa["plain_ms"],
         "bound_ms": main_swa["bound_ms"], "bound_by": main_swa["bound_by"],
         "library_ms": main_swa["library_ms"]}, {
         "name": "ssd_chunked", "route": "cuda",

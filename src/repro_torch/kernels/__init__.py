@@ -5,9 +5,11 @@
     (CUDA C++, ``csrc/spmm_csr_rows.cu``), the GCN path's SpMM, and the
     port of the TPU kernel's literal blocked-ELL interface (CUDA C++,
     ``csrc/spmm_blocked_ell.cu``), off the path
-  * ``swa`` — banded sliding-window flash attention (CUDA C++,
-    ``csrc/swa_attention.cu``), the port of the TPU kernel
-    ``repro/kernels/swa.py:swa_attention_pallas``
+  * ``swa`` — banded sliding-window flash attention, the port of the TPU
+    kernel ``repro/kernels/swa.py:swa_attention_pallas``: bf16 ``wgmma``
+    with TMA-fed stages (CUDA C++, ``csrc/swa_attention_wgmma.cu``), the
+    prefill path's, and float32 FMA (CUDA C++, ``csrc/swa_attention.cu``)
+    for float32 and D 256
   * ``ssd`` — the Mamba2 SSD chunk scan (CUDA C++, ``csrc/ssd_chunked.cu``),
     the port of the TPU kernel ``repro/kernels/ssd.py:ssd_chunked_pallas``
 
@@ -19,7 +21,8 @@ package's is the model zoo's ``ssd_chunked``). ``_build`` compiles the CUDA sour
 from .spmm import (csr_to_blocked_ell, spmm_blocked_ell,
                    spmm_blocked_ell_plain, spmm_csr_rows, spmm_csr_rows_plain,
                    to_blocked_ell)
-from .swa import swa_attention, swa_attention_plain
+from .swa import (swa_attention, swa_attention_fma, swa_attention_plain,
+                  swa_attention_wgmma)
 from .ssd import ssd_chunked, ssd_chunked_plain
 from .ops import BlockedEll, CsrOperand, spmm_op, swa_attention_op
 from . import ref

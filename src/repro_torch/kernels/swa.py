@@ -1,12 +1,21 @@
 """Banded (sliding-window) causal flash attention: the hand-written Hopper
-kernel and its plain PyTorch version.
+kernels and their plain PyTorch version.
 
 The TPU kernel ``repro/kernels/swa.py:swa_attention_pallas`` visits, for
 each 128-row query block, only the key blocks inside the window, with an
-online softmax over them (the SWAT analogue). ``swa_attention`` launches
-``csrc/swa_attention.cu`` on a CUDA tensor and uses ``swa_attention_plain``
-on a CPU tensor; it never falls back from one to the other.
-``swa_attention.launches`` counts kernel launches.
+online softmax over them (the SWAT analogue). Two CUDA kernels compute it
+on the card:
+
+  * ``swa_attention_wgmma`` (``csrc/swa_attention_wgmma.cu``): bf16 with
+    D 64 or 128, both products on bf16 ``wgmma``, K/V tiles fed by TMA
+    into a ring of shared-memory stages; the qwen3-4b prefill path's;
+  * ``swa_attention_fma`` (``csrc/swa_attention.cu``): float32, and bf16
+    with D 256, on float32 FMA.
+
+``swa_attention`` takes the kernel that ``_route`` names on a CUDA tensor
+and ``swa_attention_plain`` on a CPU tensor; it never falls back from one
+to another. Each kernel's entry function counts its launches
+(``.launches``); ``swa_attention.launches`` counts both.
 
 Layout: q (B, H, S, D), k and v (B, KV, S, D); query head h reads KV head
 h // (H // KV). Shapes are held to the reference's asserts: S and window
@@ -23,7 +32,8 @@ from . import _build
 
 NEG_INF = -1e30
 BLK = 128                        # the TPU kernel's block: S, window % BLK == 0
-KERNEL_D = (64, 128, 256)        # head dims the CUDA kernel is built for
+WGMMA_D = (64, 128)              # bf16 head dims of the wgmma kernel
+FMA_D = (64, 128, 256)           # head dims of the FMA kernel
 PLAIN_CHUNK_BYTES = 256 << 20    # bound on one piece of the plain scores
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -95,8 +105,21 @@ def swa_attention_plain(q, k, v, *, window: int, scale: float,
     return out
 
 
+def _route(dtype, D: int) -> str:
+    """The kernel that takes a CUDA input of this dtype and head dim:
+    ``"wgmma"`` (bf16, D 64 or 128) or ``"fma"`` (float32 with D 64, 128
+    or 256, and bf16 with D 256). Raises on what neither takes."""
+    if dtype == torch.bfloat16 and D in WGMMA_D:
+        return "wgmma"
+    if dtype in _DTYPES and D in FMA_D:
+        return "fma"
+    raise ValueError(f"no SWA kernel takes {dtype} with D={D}: the wgmma "
+                     f"kernel takes bf16 with D in {WGMMA_D}, the FMA kernel "
+                     f"float32 or bf16 with D in {FMA_D}")
+
+
 @functools.cache
-def _kernel_fn():
+def _fma_fn():
     fn = _build.load("swa_attention").swa_attention_fwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 6 + [ctypes.c_float]
@@ -105,41 +128,114 @@ def _kernel_fn():
     return fn
 
 
+@functools.cache
+def _wgmma_fn():
+    fn = _build.load("swa_attention_wgmma").swa_attention_wgmma_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int64] * 12
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wgmma_smem_bytes(D: int) -> int:
+    """Dynamic shared memory a CTA of the wgmma kernel takes at head dim D
+    (builds the kernel's library)."""
+    fn = _build.load("swa_attention_wgmma").swa_attention_wgmma_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(D)
+
+
+def _cuda_args(name: str, dtypes, dims, q, k, v, window: int):
+    """Checks shared by both kernels on a CUDA input; returns the output,
+    with q's strides."""
+    _check(q, k, v, window)
+    if q.dtype not in dtypes or q.shape[3] not in dims:
+        raise ValueError(f"{name} takes {dtypes} with D in {dims}; got "
+                         f"{q.dtype} with D={q.shape[3]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on a CUDA tensor; got {q.device} "
+                         "(swa_attention takes the plain version on the CPU)")
+    out = torch.empty_like(q)
+    for label, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                (st * t.element_size()) % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{label}: the last dimension must be contiguous "
+                             f"and rows 16-byte aligned; strides "
+                             f"{t.stride()}")
+    return out
+
+
+def _strides(q, k, v, out):
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3])
+
+
+def swa_attention_wgmma(q, k, v, *, window: int, scale: float):
+    """The wgmma kernel on bf16 CUDA tensors with D 64 or 128, on the
+    current stream; raises on anything else."""
+    out = _cuda_args("swa_attention_wgmma", (torch.bfloat16,), WGMMA_D,
+                     q, k, v, window)
+    B, H, S, D = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _wgmma_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), B, H, k.shape[1], S, D, window,
+                          scale, *_strides(q, k, v, out), stream)
+    if err < 0:
+        raise RuntimeError(
+            "swa_attention_wgmma: no cuTensorMapEncodeTiled in the driver"
+            if err == -1 else f"swa_attention_wgmma: the driver refused a "
+            f"TMA map, CUresult {-err - 1000}")
+    if err != 0:
+        raise RuntimeError(f"swa_attention_wgmma launch failed: cudaError "
+                           f"{err}")
+    swa_attention_wgmma.launches += 1
+    return out
+
+
+def swa_attention_fma(q, k, v, *, window: int, scale: float):
+    """The FMA kernel on float32 or bf16 CUDA tensors with D 64, 128 or 256,
+    on the current stream; raises on anything else. ``swa_attention``
+    routes bf16 with D 64 or 128 to the wgmma kernel instead."""
+    out = _cuda_args("swa_attention_fma", tuple(_DTYPES), FMA_D, q, k, v,
+                     window)
+    B, H, S, D = q.shape
+    if B * H > 65535:
+        raise ValueError(f"the FMA kernel takes B*H <= 65535; got {B * H}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _fma_fn()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), out.data_ptr(), B, H, k.shape[1], S, D,
+                        window, scale, *_strides(q, k, v, out), stream)
+    if err != 0:
+        raise RuntimeError(f"swa_attention_fma launch failed: cudaError "
+                           f"{err}")
+    swa_attention_fma.launches += 1
+    return out
+
+
+_KERNELS = {"wgmma": swa_attention_wgmma, "fma": swa_attention_fma}
+
+
 def swa_attention(q, k, v, *, window: int, scale: float):
     """Banded causal attention, (B, H, S, D) -> (B, H, S, D) in q's dtype.
 
-    On a CUDA tensor: the hand-written kernel, on the current stream; the
-    output has q's strides, and any strides with a contiguous last
-    dimension and 16-byte aligned rows are read in place. On a CPU tensor:
-    ``swa_attention_plain``."""
+    On a CUDA tensor: the kernel that ``_route`` names, on the current
+    stream; the output has q's strides, and any strides with a contiguous
+    last dimension and 16-byte aligned rows are read in place. On a CPU
+    tensor: ``swa_attention_plain``."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, H, S, D = q.shape
-    KV = k.shape[1]
-    if D not in KERNEL_D or B * H > 65535:
-        raise ValueError(f"kernel takes D in {KERNEL_D} and B*H <= 65535; "
-                         f"got D={D}, B*H={B * H}")
-    out = torch.empty_like(q)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-                (st * t.element_size()) % 16 for st in t.stride()[:3]):
-            raise ValueError(f"{name}: the last dimension must be contiguous "
-                             f"and rows 16-byte aligned; strides "
-                             f"{t.stride()}")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel_fn()(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, H, KV, S, D, window, scale,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], stream)
-    if err != 0:
-        raise RuntimeError(f"swa_attention launch failed: cudaError {err}")
+    out = _KERNELS[_route(q.dtype, q.shape[3])](q, k, v, window=window,
+                                                scale=scale)
     swa_attention.launches += 1
     return out
 
 
 swa_attention.launches = 0
+swa_attention_wgmma.launches = 0
+swa_attention_fma.launches = 0

@@ -1,12 +1,16 @@
 """Port sliding-window attention kernel module vs the reference Pallas kernel
 (interpret mode, as tests/test_kernels.py runs it) and the oracles.
 
-Tolerances are those of tests/test_kernels.py: float32 2e-5, bfloat16 2e-2
-(both sides compute in float32 and round the output once), and 3e-5 for
-the model-layout wrapper against the model zoo's chunk + halo
-``swa_attention``. The CUDA kernel is held against its plain version on
-the card (marked ``cuda``) at the same tolerances: both sum float32
-products, in different orders.
+Tolerances against the reference are those of tests/test_kernels.py:
+float32 2e-5, bfloat16 2e-2 (both sides compute in float32 and round the
+output once), and 3e-5 for the model-layout wrapper against the model
+zoo's chunk + halo ``swa_attention``. The CUDA kernels are held against
+their plain version on the card (marked ``cuda``) at ``chip_smoke.py``'s
+gate, ``KERNEL_TOL``: float32 2e-5, bfloat16 one bf16 ulp (atol 1e-5, rtol
+2**-7); each side rounds a float32 result once, and the two differ only
+in sum order and, for the wgmma kernel, in its two-part bf16 P.
+The wgmma kernel's arithmetic (bf16 products, P split in two bf16 parts)
+is emulated on the CPU and held to the same gate.
 """
 import types
 
@@ -15,10 +19,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (ref, swa_attention, swa_attention_op,
-                                 swa_attention_plain)
+from repro_torch.kernels import (ref, swa, swa_attention, swa_attention_fma,
+                                 swa_attention_op, swa_attention_plain,
+                                 swa_attention_wgmma)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+KERNEL_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2 ** -7)}
 
 
 @pytest.fixture(scope="module")
@@ -174,6 +180,118 @@ def test_wrapper_raises_like_the_reference_asserts(bad, err):
 
 
 # ---------------------------------------------------------------------------
+# the wgmma kernel's numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _emulate_wgmma_kernel(q, k, v, *, window, scale, split=True, bq=128,
+                          bk=128):
+    """csrc/swa_attention_wgmma.cu's arithmetic in torch: per 128-row query
+    tile, an online softmax over the 128-key tiles that hold an in-band
+    key; q.k on the raw bf16 q and k (exact products, float32 sums), the
+    scale folded with log2(e) into exp2 after the product; P split into
+    hi = bf16(p) and lo = bf16(p - hi) (``split``; else rounded once) and
+    p.v = hi V + lo V in float32; l summed from the float32 p; the output
+    rounded once. As in the kernel's pipeline, o takes on tile j's factor
+    after p.v of tile j - 1 has been added to it."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    c = scale * 1.4426950408889634
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    out = torch.empty_like(q)
+    for q0 in range(0, S, bq):
+        rows = torch.arange(q0, q0 + bq)[:, None]
+        m = torch.full((B, H, bq), -1e30)
+        l = torch.zeros((B, H, bq))
+        acc = torch.zeros((B, H, bq, D))
+        pv = None                                  # p.v of the last tile
+        for k0 in range(max(0, q0 - window + 1) // bk * bk, q0 + bq, bk):
+            rel = rows - torch.arange(k0, k0 + bk)[None, :]
+            valid = (rel >= 0) & (rel < window)
+            kt, vt = (t[:, :, k0:k0 + bk].repeat_interleave(G, 1)
+                      for t in (kf, vf))
+            s = qf[:, :, q0:q0 + bq] @ kt.transpose(-1, -2)
+            s = torch.where(valid, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.where(valid, torch.exp2(s * c - (m_new * c)[..., None]),
+                            0.0)
+            l = l * alpha + p.sum(-1)
+            if pv is not None:
+                acc = (acc + pv) * alpha[..., None]
+            hi = p.bfloat16().float()
+            pv = hi @ vt
+            if split:
+                pv = pv + (p - hi).bfloat16().float() @ vt
+            m = m_new
+        out[:, :, q0:q0 + bq] = (
+            (acc + pv) / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+def _gate_failures(out, plain):
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    return int((~torch.isclose(out.float(), plain.float(), atol=atol,
+                               rtol=rtol)).sum())
+
+
+@pytest.mark.parametrize("S,window,D,G,seed", [
+    (512, 128, 64, 1, 0), (512, 256, 128, 4, 1), (1024, 256, 64, 4, 2),
+    (1024, 512, 128, 1, 3), (2048, 512, 128, 4, 4), (2048, 128, 64, 1, 5)])
+def test_wgmma_numerics_meet_the_one_ulp_gate(S, window, D, G, seed):
+    """The design's arithmetic holds the plain version to one bf16 ulp."""
+    q, k, v = _to_torch(_qkv(seed, 1, 2 * G, 2, S, D), torch.bfloat16)
+    emu = _emulate_wgmma_kernel(q, k, v, window=window, scale=D ** -0.5)
+    plain = swa_attention_plain(q, k, v, window=window, scale=D ** -0.5)
+    assert emu.dtype == torch.bfloat16
+    assert _gate_failures(emu, plain) == 0
+
+
+def test_p_rounded_once_to_bf16_fails_the_gate():
+    """Why the kernel splits P: one bf16 rounding of p misses the gate."""
+    q, k, v = _to_torch(_qkv(0, 1, 8, 2, 2048, 128), torch.bfloat16)
+    plain = swa_attention_plain(q, k, v, window=512, scale=128 ** -0.5)
+    once = _emulate_wgmma_kernel(q, k, v, window=512, scale=128 ** -0.5,
+                                 split=False)
+    assert _gate_failures(once, plain) > 0.05 * plain.numel()
+
+
+# ---------------------------------------------------------------------------
+# routing between the two CUDA kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
+    (torch.bfloat16, 32, None), (torch.float32, 96, None),
+    (torch.float16, 128, None)])
+def test_route_names_the_kernel_or_raises(dtype, D, route):
+    if route is None:
+        with pytest.raises(ValueError):
+            swa._route(dtype, D)
+    else:
+        assert swa._route(dtype, D) == route
+
+
+@pytest.mark.parametrize("fn,dtype,D", [
+    (swa_attention_wgmma, torch.float32, 128),
+    (swa_attention_wgmma, torch.bfloat16, 256),
+    (swa_attention_fma, torch.bfloat16, 96)])
+def test_kernel_entries_raise_on_what_their_kernel_does_not_take(fn, dtype,
+                                                                 D):
+    q, k, v = _to_torch(_qkv(8, 1, 2, 1, 256, D), dtype)
+    with pytest.raises(ValueError, match="takes"):
+        fn(q, k, v, window=128, scale=0.125)
+
+
+@pytest.mark.parametrize("fn", [swa_attention_wgmma, swa_attention_fma])
+def test_kernel_entries_raise_on_a_cpu_tensor(fn):
+    q, k, v = _to_torch(_qkv(9, 1, 2, 1, 256, 64), torch.bfloat16)
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(q, k, v, window=128, scale=0.125)
+    assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel (runs only where there is a card)
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -187,16 +305,38 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,window,D,G", [
     (256, 128, 64, 1), (384, 128, 128, 4), (512, 256, 128, 8),
-    (256, 256, 64, 4), (1024, 256, 256, 2)])
+    (256, 256, 64, 4), (1024, 256, 256, 2), (128, 128, 128, 1),
+    (128, 128, 64, 8), (512, 256, 64, 4), (1024, 512, 128, 1)])
 def test_cuda_kernel_matches_plain(cuda, dtype, S, window, D, G):
+    """The routed kernel (wgmma for bf16 with D 64/128, FMA otherwise) at
+    the one-ulp gate; the model layout read in place gives the same
+    output bit for bit."""
     q, k, v = _to_torch(_qkv(S + D + G, 2, 2 * G, 2, S, D), dtype, cuda)
-    before = swa_attention.launches
+    kernel = swa._KERNELS[swa._route(dtype, D)]
+    before = swa_attention.launches, kernel.launches
     out = swa_attention(q, k, v, window=window, scale=D ** -0.5)
     torch.cuda.synchronize()
-    assert swa_attention.launches == before + 1
+    assert (swa_attention.launches, kernel.launches) == (before[0] + 1,
+                                                         before[1] + 1)
     plain = swa_attention_plain(q, k, v, window=window, scale=D ** -0.5)
-    torch.testing.assert_close(out, plain, atol=TOL[dtype], rtol=TOL[dtype])
+    atol, rtol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(out, plain, atol=atol, rtol=rtol)
     # the model layout: (B, S, H, D) views read in place
     t = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
     op = swa_attention_op(*t, window=window, scale=D ** -0.5)
     torch.testing.assert_close(op.transpose(1, 2), out, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window,D,G", [
+    (256, 128, 64, 1), (384, 128, 128, 4), (512, 256, 128, 8)])
+def test_cuda_fma_kernel_matches_plain_in_bf16(cuda, S, window, D, G):
+    """The FMA kernel on the bf16 inputs that the wgmma kernel takes on the
+    path (``chip_smoke.py`` times both on one input)."""
+    q, k, v = _to_torch(_qkv(S + G, 1, 2 * G, 2, S, D), torch.bfloat16, cuda)
+    out = swa_attention_fma(q, k, v, window=window, scale=D ** -0.5)
+    plain = swa_attention_plain(q, k, v, window=window, scale=D ** -0.5)
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    torch.testing.assert_close(out, plain, atol=atol, rtol=rtol)
+    assert torch.equal(out, swa_attention_fma(q, k, v, window=window,
+                                              scale=D ** -0.5))
