@@ -45,22 +45,33 @@ raises and the script exits non-zero:
    served logits bit for bit; then run a float32 copy of the model with
    the FMA kernel and with the plain attention, whose logits must agree
    to 1e-4 of the largest and give the same greedy tokens;
-8. hold the SSD chunk-scan kernel against its plain version at the mamba2
-   prefill path's shape (x (4, 32768, 48, 64), B/C (4, 32768, 128), chunk
-   256, read in place as strided views of one (b, L, 3328) conv output;
-   bf16, then float32), at edge shapes ((L, Q) and (P, N), float32 and
-   bf16), with an initial state, and under two chunkings of the final
-   state, with its time, the plain version's and the bound (no single
-   PyTorch call computes the chunk scan, so there is no library yardstick);
+8. hold the SSD chunk scan against its plain version: first each of the
+   three tensor-core kernels (K1 ``ssd_chunk_state``, K2
+   ``ssd_state_scan``, K3 ``ssd_chunk_out``) against its plain stage on
+   the plain stage's own inputs (L 512, chunk 128, bf16, normal and slow
+   decay, with an initial state); then the route that ``ssd_chunked``
+   takes (tensor cores for bf16 with P % 64 == 0 and Q % 64 == 0, the FMA
+   kernel for float32 and other bf16 shapes) at the mamba2 prefill path's
+   shape (x (4, 32768, 48, 64), B/C (4, 32768, 128), chunk 256, read in
+   place as strided views of one (b, L, 3328) conv output; bf16, then
+   float32), at edge shapes ((L, Q) and (P, N), float32 and bf16), with an
+   initial state, and under two chunkings of the final state; on the bf16
+   path-shape input the tensor-core route, each of its kernels, the FMA
+   kernel and the plain version are timed, with the bound (no single
+   PyTorch call computes the chunk scan, so there is no library
+   yardstick), and the three kernels' registers, spills and shared memory
+   are recorded;
 9. drive the SSD prefill path: mamba2-780m at full width and depth under
    the prefill_32k shape, 4 requests x 32,768 tokens, launch counters set
-   to 0 just before and read just after (48 SSD launches, 0 SWA, 0 of
-   either SpMM kernel);
+   to 0 just before and read just after (48 SSD calls, all on the
+   tensor-core route: 48 launches of each of its three kernels, 0 of the
+   FMA kernel; 0 SWA, 0 of either SpMM kernel);
 10. check the served mamba2 prefill against the plain SSD: rerun the served
    forward with every kernel call also computed by the plain version and
    held to it (one bf16 ulp on y), which must give the served logits bit
-   for bit; then a float32 copy of the model with the kernel and with the
-   plain SSD, logits within 1e-4 of the largest and the same greedy tokens.
+   for bit; then a float32 copy of the model with the FMA kernel and with
+   the plain SSD, logits within 1e-4 of the largest and the same greedy
+   tokens.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -234,6 +245,8 @@ def ptxas_info(log, kernel):
                 name = f"{kernel}<{targs.group(1)}>" if targs else kernel
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             info.setdefault(name, {})["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                info[name]["static_smem"] = int(sm.group(1))
         elif name and (m := re.search(
                 r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                 r"(\d+) bytes spill loads", line)):
@@ -401,6 +414,22 @@ def ssd_bound(args, chunk, init_state=None):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def ssd_tc_issued_flops(args, chunk, parts=3):
+    """The tensor work the tensor-core route issues on these inputs: per
+    (batch, chunk, head, 64-column P slice), K1's u^T B and K3's C S^T,
+    each once a bf16 part of u and S, and per pair of 64-row tiles of the
+    causal triangle C B^T once and W x once a part of W
+    (csrc/ssd_chunk_tc.cu)."""
+    x, B = args[0], args[2]
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    pairs = (Q // 64) * (Q // 64 + 1) // 2
+    per = 2 * parts * (2 * Q * 64 * N) + pairs * (
+        2 * 64 * 64 * N + parts * 2 * 64 * 64 * 64)
+    return float(per) * b * (L // Q) * H * (P // 64)
+
+
 def hold_ssd(label, y, state, py, pstate):
     """Hold an SSD kernel result to the plain version's on the same inputs
     (SSD_TOL on y, STATE_TOL on the state); returns the max abs errors."""
@@ -417,27 +446,103 @@ def hold_ssd(label, y, state, py, pstate):
 
 
 def check_ssd(label, args, chunk, *, init_state=None, time_it=False):
-    """SSD kernel vs plain version on the card for one input; returns a
-    dict of the numbers measured."""
+    """The SSD route that ``ssd_chunked`` takes for this input vs the plain
+    version on the card; with ``time_it`` (a bf16 input of the tensor-core
+    route) also the FMA kernel on the same input, held to the plain version
+    too, and the times of the route, of each of its three kernels, of the
+    FMA kernel and of the plain version, with the bound. Returns a dict of
+    the numbers measured."""
     import torch
-    from repro_torch.kernels import ssd_chunked, ssd_chunked_plain
+    from repro_torch.kernels import (ssd, ssd_chunk_out, ssd_chunk_state,
+                                     ssd_chunked, ssd_chunked_fma,
+                                     ssd_chunked_plain, ssd_state_scan)
+    x, B = args[0], args[2]
+    route = ssd._route(x.dtype, x.shape[3], B.shape[-1],
+                       min(chunk, x.shape[1]))
+    kernel = ssd._KERNELS[route]
     kw = {"chunk": chunk, "init_state": init_state}
+    n0 = kernel.launches
     y, state = ssd_chunked(*args, **kw)
     py, pstate = ssd_chunked_plain(*args, **kw)
     torch.cuda.synchronize()
+    if kernel.launches != n0 + 1:
+        raise AssertionError(f"{label}: ssd_chunked did not take the {route} "
+                             f"route")
     err, state_err = hold_ssd(label, y, state, py, pstate)
-    row = {"label": label, "x": list(args[0].shape), "N": args[2].shape[-1],
-           "chunk": chunk, "dtype": str(args[0].dtype), "max_abs_err": err,
-           "state_max_abs_err": state_err}
+    row = {"label": label, "kernel": route, "x": list(x.shape),
+           "N": B.shape[-1], "chunk": chunk, "dtype": str(x.dtype),
+           "max_abs_err": err, "state_max_abs_err": state_err}
     if time_it:
-        row["ms"] = time_ms(lambda: ssd_chunked(*args, **kw), 10)
+        fy, fstate = ssd_chunked_fma(*args, **kw)
+        torch.cuda.synchronize()
+        row["fma_max_abs_err"] = hold_ssd(f"{label} (FMA kernel)", fy, fstate,
+                                          py, pstate)[0]
+        del fy, fstate
+        row["ms"] = time_ms(lambda: kernel(*args, **kw), 10)
+        row["fma_ms"] = time_ms(lambda: ssd_chunked_fma(*args, **kw), 10)
         row["plain_ms"] = time_ms(lambda: ssd_chunked_plain(*args, **kw), 3)
         row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
             ssd_bound(args, chunk, init_state)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
+        row["fma_tflop_per_s"] = row["flops"] / row["fma_ms"] / 1e9
+        row["issued_flops"] = ssd_tc_issued_flops(args, chunk)
+        row["issued_tflop_per_s"] = row["issued_flops"] / row["ms"] / 1e9
+        dts, da = ssd._discretize(args[1], args[4])
+        la, st = ssd_chunk_state(x, dts, da, B, chunk=chunk)
+        row["stage_ms"] = {
+            "ssd_chunk_state": time_ms(
+                lambda: ssd_chunk_state(x, dts, da, B, chunk=chunk), 10),
+            "ssd_state_scan": time_ms(
+                lambda: ssd_state_scan(la, st, chunk=chunk), 10),
+            "ssd_chunk_out": time_ms(
+                lambda: ssd_chunk_out(x, dts, la, B, args[3], args[5], st,
+                                      chunk=chunk), 10)}
         row["library_ms"] = None
+        del dts, da, la, st
     del y, state, py, pstate
     torch.cuda.synchronize()
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def check_ssd_stages(label, args, chunk, init_state):
+    """Each of the tensor-core route's three kernels vs its plain stage,
+    on the plain stage's own inputs: la and ds (K1), the states entering
+    the chunks and the final state (K2) at STATE_TOL, y (K3) at SSD_TOL.
+    Returns a dict of the max abs errors."""
+    import torch
+    from repro_torch.kernels import (ssd, ssd_chunk_out, ssd_chunk_out_plain,
+                                     ssd_chunk_state, ssd_chunk_state_plain,
+                                     ssd_state_scan, ssd_state_scan_plain)
+    x, dt, B, C, A_log, D = args
+    dts, da = ssd._discretize(dt, A_log)
+
+    def close(name, out, ref, tol):
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{label} {name}: not finite")
+        torch.testing.assert_close(out, ref, atol=tol[0], rtol=tol[1],
+                                   msg=lambda m: f"{label} {name}: {m}")
+        return float((out.float() - ref.float()).abs().max())
+
+    row = {"label": label}
+    la, ds = ssd_chunk_state(x, dts, da, B, chunk=chunk)
+    pla, pds = ssd_chunk_state_plain(x, dts, da, B, chunk=chunk)
+    torch.cuda.synchronize()
+    row["ssd_chunk_state"] = max(close("la", la, pla, (STATE_TOL,) * 2),
+                                 close("ds", ds, pds, (STATE_TOL,) * 2))
+    st = pds.clone()
+    s_out = ssd_state_scan(pla, st, chunk=chunk, init_state=init_state)
+    s_in, pstate = ssd_state_scan_plain(pla, pds, chunk=chunk,
+                                        init_state=init_state)
+    torch.cuda.synchronize()
+    row["ssd_state_scan"] = max(close("s_in", st, s_in, (STATE_TOL,) * 2),
+                                close("state", s_out, pstate,
+                                      (STATE_TOL,) * 2))
+    y = ssd_chunk_out(x, dts, pla, B, C, D, s_in, chunk=chunk)
+    py = ssd_chunk_out_plain(x, dts, pla, B, C, D, s_in, chunk=chunk)
+    torch.cuda.synchronize()
+    row["ssd_chunk_out"] = close("y", y, py, SSD_TOL["bfloat16"])
     print(json.dumps(row), flush=True)
     return row
 
@@ -468,10 +573,12 @@ def main():
     from repro_torch.data import table1_graph
     from repro_torch.kernels import (BlockedEll, CsrOperand, _build,
                                      csr_to_blocked_ell, ops,
-                                     spmm_blocked_ell, spmm_csr_rows,
-                                     ssd_chunked, ssd_chunked_plain, swa,
-                                     swa_attention, swa_attention_fma,
-                                     swa_attention_plain,
+                                     spmm_blocked_ell, spmm_csr_rows, ssd,
+                                     ssd_chunk_out, ssd_chunk_state,
+                                     ssd_chunked, ssd_chunked_fma,
+                                     ssd_chunked_plain, ssd_chunked_tc,
+                                     ssd_state_scan, swa, swa_attention,
+                                     swa_attention_fma, swa_attention_plain,
                                      swa_attention_wgmma)
     from repro_torch.launch.serve_prefill import serve_prefill
     from repro_torch.launch.steps import make_prefill_step
@@ -740,8 +847,15 @@ def main():
     del pre, held, kern, plain
     torch.cuda.empty_cache()
 
-    # 8) SSD kernel vs plain on the card
-    phase("8. SSD kernel vs its plain version")
+    # 8) SSD kernels vs plain on the card
+    phase("8. SSD kernels vs their plain versions")
+    stage_rows = []
+    for slow in (False, True):
+        args = ssd_inputs(gen, dev, 2, 512, 3, 64, 128, torch.bfloat16, slow)
+        s0 = torch.randn((2, 3, 64, 128), generator=gen, device=dev)
+        stage_rows.append(check_ssd_stages(
+            f"K1-K3 vs plain stages slow={slow} L=512 chunk=128 bf16", args,
+            128, s0))
     b, L, H, P, N, Qc = 4, 32768, 48, 64, 128, 256
     ssd_rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -751,6 +865,17 @@ def main():
             time_it=dtype == torch.bfloat16))
         del args
     main_ssd = ssd_rows[0]
+    if main_ssd["kernel"] != "tc":
+        raise AssertionError("the bf16 prefill shape is not routed to the "
+                             "tensor-core kernels")
+    tc_build = {
+        "ptxas": {k: ptxas_info(logs.get("ssd_chunk_tc", ""), k)
+                  for k in ("ssd_chunk_state_kernel", "ssd_state_scan_kernel",
+                            "ssd_chunk_out_kernel")},
+        "ssd_chunk_out_dynamic_smem_bytes": {
+            f"Q={q_} N={n_}": ssd.tc_smem_bytes(q_, n_)
+            for q_ in (64, 128, 256) for n_ in ssd.KERNEL_N}}
+    print(json.dumps({"ssd_chunk_tc build": tc_build}), flush=True)
     for dtype in (torch.float32, torch.bfloat16):
         for l_, q_ in ((256, 128), (512, 128), (512, 256), (128, 128),
                        (96, 256)):
@@ -785,15 +910,24 @@ def main():
     swa_attention_wgmma.launches = 0
     swa_attention_fma.launches = 0
     ssd_chunked.launches = 0
+    ssd_chunked_tc.launches = 0
+    ssd_chunked_fma.launches = 0
+    ssd_stages = (ssd_chunk_state, ssd_state_scan, ssd_chunk_out)
+    for f in ssd_stages:
+        f.launches = 0
     mam = serve_prefill(SSD_PREFILL["arch"], shape=SSD_PREFILL["shape"],
                         batch=SSD_PREFILL["batch"],
                         prompt_len=SSD_PREFILL["prompt_len"], device=dev)
     torch.cuda.synchronize()
     ssd_launches = ssd_chunked.launches
+    tc_calls, fma_calls = ssd_chunked_tc.launches, ssd_chunked_fma.launches
+    stage_launches = {f.__name__: f.launches for f in ssd_stages}
     mcfg = mam.cfg
     print(f"[prefill] {mam.tokens.numel()} tokens in "
           f"{mam.seconds * 1e3:.3f} ms ({mam.tok_per_s:.3f} tok/s); "
-          f"ssd_chunked launches {ssd_launches}, swa_attention launches "
+          f"ssd_chunked calls {ssd_launches} (ssd_chunked_tc {tc_calls}, "
+          f"ssd_chunked_fma {fma_calls}); kernel launches {stage_launches}; "
+          f"swa_attention launches "
           f"{swa_attention.launches}, spmm_csr_rows launches "
           f"{spmm_csr_rows.launches}, spmm_blocked_ell launches "
           f"{spmm_blocked_ell.launches}; peak memory "
@@ -803,11 +937,17 @@ def main():
             mcfg.ssm_chunk, mcfg.ssm_heads, mcfg.ssm_head_dim) != \
             ("ssm", 48, 1536, 128, 256, 48, 64):
         raise AssertionError(f"not the full mamba2-780m config: {mcfg}")
-    if ssd_launches != mcfg.n_layers or swa_attention.launches \
-            or spmm_csr_rows.launches or spmm_blocked_ell.launches:
-        raise AssertionError(f"expected {mcfg.n_layers} SSD and no SWA or "
-                             f"SpMM kernel launches, saw {ssd_launches}, "
-                             f"{swa_attention.launches}, "
+    if ssd_launches != mcfg.n_layers or tc_calls != mcfg.n_layers \
+            or fma_calls or any(n != mcfg.n_layers
+                                for n in stage_launches.values()) \
+            or swa_attention.launches or spmm_csr_rows.launches \
+            or spmm_blocked_ell.launches:
+        raise AssertionError(f"expected {mcfg.n_layers} SSD calls, all on "
+                             f"the tensor-core route ({mcfg.n_layers} "
+                             f"launches of each of its kernels), and no SWA "
+                             f"or SpMM kernel launches, saw {ssd_launches} "
+                             f"({tc_calls} tc, {fma_calls} fma), "
+                             f"{stage_launches}, {swa_attention.launches}, "
                              f"{spmm_csr_rows.launches} and "
                              f"{spmm_blocked_ell.launches}")
     if tuple(mam.logits.shape) != (SSD_PREFILL["batch"], 1, 50432) \
@@ -835,11 +975,11 @@ def main():
     mcfg32 = mcfg.replace(param_dtype="float32", compute_dtype="float32")
     params32 = tree_map(lambda t: t.float(), mam.params)
     step32 = make_prefill_step(mcfg32, device=dev)
-    n0 = ssd_chunked.launches
+    n0 = ssd_chunked_fma.launches
     with torch.inference_mode():
         kern = step32(params32, {"tokens": mam.tokens})
-        if ssd_chunked.launches != n0 + mcfg.n_layers:
-            raise AssertionError("the float32 forward missed the kernel")
+        if ssd_chunked_fma.launches != n0 + mcfg.n_layers:
+            raise AssertionError("the float32 forward missed the FMA kernel")
         with mock.patch.object(ssm_model, "ssd_chunked", ssd_chunked_plain):
             plain = step32(params32, {"tokens": mam.tokens})
     torch.cuda.synchronize()
@@ -892,11 +1032,28 @@ def main():
         "ms": main_swa["fma_ms"], "plain_ms": main_swa["plain_ms"],
         "bound_ms": main_swa["bound_ms"], "bound_by": main_swa["bound_by"],
         "library_ms": main_swa["library_ms"]}, {
-        "name": "ssd_chunked", "route": "cuda",
+        # three launches a call: K1, K2 and K3, one each
+        "name": "ssd_chunk_tc", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_tc.cu",
+        "replaces": "src/repro/kernels/ssd.py:74",
+        "launches": sum(stage_launches.values()), "calls": tc_calls,
+        "kernel_launches": stage_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in ssd_rows
+                            if r["kernel"] == "tc"] + ssd_errs
+                           + [r["ssd_chunk_out"] for r in stage_rows]),
+        "ms": main_ssd["ms"], "stage_ms": main_ssd["stage_ms"],
+        "plain_ms": main_ssd["plain_ms"],
+        "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
+        "tflop_per_s": main_ssd["tflop_per_s"],
+        "issued_tflop_per_s": main_ssd["issued_tflop_per_s"],
+        "library_ms": None}, {
+        "name": "ssd_chunked_fma", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunked.cu",
-        "replaces": "src/repro/kernels/ssd.py:74", "launches": ssd_launches,
-        "max_abs_err": max([r["max_abs_err"] for r in ssd_rows] + ssd_errs),
-        "ms": main_ssd["ms"], "plain_ms": main_ssd["plain_ms"],
+        "replaces": "src/repro/kernels/ssd.py:74", "launches": fma_calls,
+        "max_abs_err": max([r["max_abs_err"] for r in ssd_rows
+                            if r["kernel"] == "fma"]
+                           + [main_ssd["fma_max_abs_err"]]),
+        "ms": main_ssd["fma_ms"], "plain_ms": main_ssd["plain_ms"],
         "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
         "library_ms": None}]
     print(json.dumps({"kernels": kernels}))

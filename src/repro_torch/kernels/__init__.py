@@ -10,8 +10,11 @@
     with TMA-fed stages (CUDA C++, ``csrc/swa_attention_wgmma.cu``), the
     prefill path's, and float32 FMA (CUDA C++, ``csrc/swa_attention.cu``)
     for float32 and D 256
-  * ``ssd`` — the Mamba2 SSD chunk scan (CUDA C++, ``csrc/ssd_chunked.cu``),
-    the port of the TPU kernel ``repro/kernels/ssd.py:ssd_chunked_pallas``
+  * ``ssd`` — the Mamba2 SSD chunk scan, the port of the TPU kernel
+    ``repro/kernels/ssd.py:ssd_chunked_pallas``: three chunk-parallel
+    kernels on bf16 tensor cores (CUDA C++, ``csrc/ssd_chunk_tc.cu``), the
+    prefill path's, and float32 FMA with the chunk loop in one kernel
+    (CUDA C++, ``csrc/ssd_chunked.cu``) for float32 and other bf16 shapes
 
 Each kernel ships with its plain PyTorch version beside it (used on CPU
 tensors and as the comparison on the card) and a launch counter; ref.py
@@ -23,6 +26,9 @@ from .spmm import (csr_to_blocked_ell, spmm_blocked_ell,
                    to_blocked_ell)
 from .swa import (swa_attention, swa_attention_fma, swa_attention_plain,
                   swa_attention_wgmma)
-from .ssd import ssd_chunked, ssd_chunked_plain
+from .ssd import (ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state,
+                  ssd_chunk_state_plain, ssd_chunked, ssd_chunked_fma,
+                  ssd_chunked_plain, ssd_chunked_tc, ssd_state_scan,
+                  ssd_state_scan_plain)
 from .ops import BlockedEll, CsrOperand, spmm_op, swa_attention_op
 from . import ref

@@ -18,8 +18,12 @@ to another. Each kernel's entry function counts its launches
 (``.launches``); ``swa_attention.launches`` counts both.
 
 Layout: q (B, H, S, D), k and v (B, KV, S, D); query head h reads KV head
-h // (H // KV). Shapes are held to the reference's asserts: S and window
-multiples of its block, ``BLK`` = 128.
+h // (H // KV). Every route takes what one of the reference's two
+functions takes: the model zoo's ``swa_attention`` (a window that divides
+S, or covers it) or the Pallas kernel (S and window multiples of its block,
+``BLK`` = 128). Both CUDA kernels tile S by 128 rows, so on a CUDA tensor
+S and the window must be multiples of ``BLK``; the plain version on the CPU
+takes the rest.
 """
 from __future__ import annotations
 
@@ -50,11 +54,11 @@ def _check(q, k, v, window: int):
                          f"match q {tuple(q.shape)}")
     if KV == 0 or H % KV:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
-    if S % BLK:
-        raise ValueError(f"S={S} is not a multiple of {BLK}")
-    if window <= 0 or window % BLK:
-        raise ValueError(f"window={window} is not a positive multiple of "
-                         f"{BLK}")
+    if window <= 0:
+        raise ValueError(f"window={window} is not positive")
+    if window < S and S % window and (S % BLK or window % BLK):
+        raise ValueError(f"window={window} neither divides S={S} nor are "
+                         f"both multiples of {BLK}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v must share one dtype, float32 or bfloat16; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -146,10 +150,21 @@ def wgmma_smem_bytes(D: int) -> int:
     return fn(D)
 
 
+def _check_tiles(S: int, window: int):
+    """Both CUDA kernels tile S by ``BLK`` rows; raises on an S or a window
+    that is not a multiple of it (the plain version on the CPU takes
+    them)."""
+    if S % BLK or window % BLK:
+        raise ValueError(f"the CUDA kernels tile S by {BLK} rows, so S and "
+                         f"the window must be multiples of {BLK}; got S={S}, "
+                         f"window={window}")
+
+
 def _cuda_args(name: str, dtypes, dims, q, k, v, window: int):
     """Checks shared by both kernels on a CUDA input; returns the output,
     with q's strides."""
     _check(q, k, v, window)
+    _check_tiles(q.shape[2], window)
     if q.dtype not in dtypes or q.shape[3] not in dims:
         raise ValueError(f"{name} takes {dtypes} with D in {dims}; got "
                          f"{q.dtype} with D={q.shape[3]}")

@@ -226,6 +226,22 @@ def test_attention_train_matches_reference(jref, window):
     np.testing.assert_allclose(_np(out), _np(exp), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("S,window", [(256, 64), (384, 192)])
+def test_swa_window_not_a_multiple_of_128_matches_reference(jref, S, window):
+    """A window that divides S but is not a multiple of the kernels' 128-row
+    tile: on the CPU the port takes it, as the reference's model
+    ``swa_attention`` does (the CUDA kernels refuse it, see
+    tests/test_torch_swa.py)."""
+    rng = np.random.default_rng(S + window)
+    q = rng.normal(size=(1, S, 4, 64)).astype(np.float32)
+    k = rng.normal(size=(1, S, 2, 64)).astype(np.float32)
+    v = rng.normal(size=(1, S, 2, 64)).astype(np.float32)
+    exp = jref.attention.swa_attention(
+        *(jref.jnp.asarray(a) for a in (q, k, v)), window=window, scale=0.125)
+    out = tattn.swa_attention(_t(q), _t(k), _t(v), window=window, scale=0.125)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_matches_reference(jref, causal):
     rng = np.random.default_rng(5)

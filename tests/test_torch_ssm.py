@@ -12,10 +12,13 @@ bfloat16 one bf16 ulp of the model zoo's ``ssd_chunked`` (both compute in
 float32 and round y once; the Pallas wrapper rounds twice and is held to
 it only in float32); the mixer 1e-5 in float32; the prefill logits 1e-4
 in float32 and, in bfloat16, bit for bit against the reference evaluated
-op by op (see the test). The CUDA kernel is held against its plain
-version on the card (marked ``cuda``).
+op by op (see the test). The CUDA kernels are held against their plain
+versions on the card (marked ``cuda``). The tensor-core route's arithmetic
+(bf16 products, u, S_in and W split in two bf16 parts) is emulated on the
+CPU and held to ``chip_smoke.py``'s gates.
 """
 import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -23,10 +26,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as tconfigs
-from repro_torch.kernels import ssd_chunked, ssd_chunked_plain
+from repro_torch.kernels import (ssd, ssd_chunk_out, ssd_chunk_out_plain,
+                                 ssd_chunk_state, ssd_chunk_state_plain,
+                                 ssd_chunked, ssd_chunked_fma,
+                                 ssd_chunked_plain, ssd_chunked_tc,
+                                 ssd_state_scan, ssd_state_scan_plain)
 from repro_torch.launch.serve_prefill import serve_prefill
-from repro_torch.launch.steps import make_prefill_step
-from repro_torch.models import lm_params_from_numpy
+from repro_torch.launch.steps import effective_config, make_prefill_step
+from repro_torch.models import init_params, lm_params_from_numpy, model_decls
 from repro_torch.models import ssm as tssm
 
 BF16_ULP = {"atol": 1e-5, "rtol": 2 ** -7}
@@ -156,6 +163,219 @@ def test_wrapper_raises_on_what_the_reference_rejects(bad, err):
     for fn in (ssd_chunked, ssd_chunked_plain):
         with pytest.raises(err):
             fn(x, dt, B, C, A_log, D, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route: its three stages, its arithmetic, the routing
+# ---------------------------------------------------------------------------
+def _stages_plain(x, dt, B, C, A_log, D, *, chunk, init_state=None):
+    dts, da = ssd._discretize(dt, A_log)
+    la, ds = ssd_chunk_state_plain(x, dts, da, B, chunk=chunk)
+    s_in, state = ssd_state_scan_plain(la, ds, chunk=chunk,
+                                       init_state=init_state)
+    return ssd_chunk_out_plain(x, dts, la, B, C, D, s_in,
+                               chunk=chunk), state
+
+
+@pytest.mark.parametrize("L,Q,P,N", [(256, 128, 64, 128), (512, 256, 64, 128),
+                                     (512, 64, 128, 64), (96, 96, 32, 64)])
+@pytest.mark.parametrize("slow", [False, True])
+def test_plain_stages_compose_to_the_plain_version(L, Q, P, N, slow):
+    """K1, K2 and K3's plain stages, composed, are ssd_chunked_plain."""
+    args = _t(_ssd_inputs(L + Q + P, 2, L, 3, P, N, slow))
+    s0 = torch.from_numpy(np.random.default_rng(L).normal(
+        size=(2, 3, P, N)).astype(np.float32))
+    for init in (None, s0):
+        y, state = _stages_plain(*args, chunk=Q, init_state=init)
+        py, pstate = ssd_chunked_plain(*args, chunk=Q, init_state=init)
+        torch.testing.assert_close(y, py, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(state, pstate, atol=2e-5, rtol=2e-5)
+
+
+def _split(v, parts):
+    """v as the sum of ``parts`` bf16 values (hi, mid, lo), each the bf16
+    rounding of what the parts before it leave."""
+    out = []
+    for _ in range(parts):
+        out.append(v.bfloat16().float())
+        v = v - out[-1]
+    return out
+
+
+TC_PARTS = {"u": 3, "S": 3, "W": 3}
+
+
+def _emulate_tc(x, dt, B, C, A_log, D, *, chunk, init_state=None,
+                parts=TC_PARTS):
+    """csrc/ssd_chunk_tc.cu's arithmetic in torch, -> (y in float32 before
+    its rounding, final state). K1: u = x * exp(la_end - la) * dt in
+    float32, ds = u^T B on bf16 operands (exact products, float32 sums), u
+    in ``parts["u"]`` bf16 parts. K2: S <- S * exp(la_end) + ds in float32.
+    K3: G = C B^T on the raw bf16 operands; W = G * exp(la_s - la_t) * dt_t
+    masked before the exp, in ``parts["W"]`` parts; y = W x + (C S_in^T)
+    exp(la) + D x with S_in in ``parts["S"]`` parts, all in float32."""
+    b, L, H, P = x.shape
+    N, Q = B.shape[-1], chunk
+    nc = L // Q
+    dts, da = ssd._discretize(dt, A_log)
+    la = ssd._chunk_cumsum(da, Q)                             # (b, nc, Q, H)
+    xf = x.float().reshape(b, nc, Q, H, P)
+    Bf, Cf = (t.float().reshape(b, nc, Q, N) for t in (B, C))
+    dtq = dts.reshape(b, nc, Q, H)
+    u = xf * (torch.exp(la[:, :, -1:] - la) * dtq)[..., None]
+    ds = sum(torch.einsum("bctn,bcthp->bchpn", Bf, part)
+             for part in _split(u, parts["u"]))
+    S = (torch.zeros((b, H, P, N)) if init_state is None
+         else init_state.float())
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    y = torch.empty(x.shape)
+    for c in range(nc):
+        lq = la[:, c]
+        G = torch.einsum("bsn,btn->bst", Cf[:, c], Bf[:, c])
+        seg = lq[:, :, None, :] - lq[:, None, :, :]
+        W = G[..., None] * torch.exp(seg.masked_fill(
+            ~causal[None, :, :, None], float("-inf"))) * dtq[:, c, None]
+        yq = sum(torch.einsum("bsth,bthp->bshp", part, xf[:, c])
+                 for part in _split(W, parts["W"]))
+        yint = sum(torch.einsum("bsn,bhpn->bshp", Cf[:, c], part)
+                   for part in _split(S, parts["S"]))
+        y[:, c * Q:(c + 1) * Q] = yq + yint * torch.exp(lq)[..., None] \
+            + D.float()[:, None] * xf[:, c]
+        S = S * torch.exp(lq[:, -1])[..., None, None] + ds[:, c]
+    return y, S
+
+
+def _gate_failures(args, chunk, init_state=None, parts=TC_PARTS):
+    """(y, state) entries of the emulation that miss chip_smoke.py's gates
+    against ssd_chunked_plain: y one bf16 ulp, the state 2e-5."""
+    y, state = _emulate_tc(*args, chunk=chunk, init_state=init_state,
+                           parts=parts)
+    py, pstate = ssd_chunked_plain(*args, chunk=chunk, init_state=init_state)
+    y = y.to(py.dtype)
+    return (int((~torch.isclose(y.float(), py.float(), **BF16_ULP)).sum()),
+            int((~torch.isclose(state, pstate, atol=2e-5, rtol=2e-5)).sum()))
+
+
+def _synthetic(slow, init):
+    args = _t(_ssd_inputs(0, 1, 1024, 8, 64, 128, slow), torch.bfloat16)
+    s0 = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, 8, 64, 128)).astype(np.float32)) if init else None
+    return args, s0
+
+
+@pytest.mark.parametrize("slow", [False, True])
+@pytest.mark.parametrize("init", [False, True])
+def test_tc_numerics_meet_the_gates(slow, init):
+    """The design's arithmetic holds the plain version to one bf16 ulp on y
+    and 2e-5 on the state (b 1, L 1024, H 8, P 64, N 128, chunk 256)."""
+    args, s0 = _synthetic(slow, init)
+    assert _gate_failures(args, 256, s0) == (0, 0)
+
+
+def test_s_in_rounded_once_to_bf16_fails_the_gate():
+    """Why K3 splits S_in: one bf16 rounding of the state entering a chunk
+    misses the y gate at slow decay (where the carried state counts)."""
+    args, _ = _synthetic(True, False)
+    y_fail, _ = _gate_failures(args, 256, parts={**TC_PARTS, "S": 1})
+    assert y_fail > 0.01 * 1024 * 8 * 64
+
+
+@pytest.fixture(scope="module")
+def mamba2_activations():
+    """The SSD inputs of the first layer of the full-width mamba2-780m
+    (one layer, prefill_32k's config, weights from a seeded generator),
+    on a prompt of 1024 tokens: x, B and C of the model's scale, where y
+    is a small sum of large terms."""
+    cfg = effective_config(tconfigs.get_config("mamba2-780m"),
+                           tconfigs.SHAPES["prefill_32k"]).replace(n_layers=1)
+    params = init_params(model_decls(cfg), torch.Generator().manual_seed(0),
+                         "cpu", cfg.pdtype)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 1024),
+                                               dtype=np.int32)
+    seen = []
+
+    def grab(*args, **kw):
+        seen.append((args, kw["chunk"]))
+        return ssd_chunked(*args, **kw)
+
+    with mock.patch.object(tssm, "ssd_chunked", grab), torch.inference_mode():
+        make_prefill_step(cfg, device="cpu")(params, {"tokens": tokens})
+    (args, chunk), = seen
+    return [t.clone() for t in args], chunk
+
+
+def _ulps_before_rounding(args, chunk, parts):
+    """The largest error of the emulation's float32 y against the plain
+    version's float32 y (same bf16 values, float32 arithmetic), in units
+    of the bf16 ulp of the plain y."""
+    a32 = [t.float() for t in args]
+    y, _ = _emulate_tc(*a32, chunk=chunk, parts=parts)
+    py, _ = ssd_chunked_plain(*a32, chunk=chunk)
+    ulp = torch.exp2(torch.floor(torch.log2(py.abs().clamp_min(1e-30))) - 7)
+    return float(((y - py).abs() / (ulp + 1e-5)).max())
+
+
+def test_tc_numerics_meet_the_gates_on_mamba2_activations(mamba2_activations):
+    """On the model's own activations the three-part design meets the
+    gates, with its float32 y within a tenth of an ulp before rounding."""
+    args, chunk = mamba2_activations
+    assert _gate_failures(args, chunk) == (0, 0)
+    assert _ulps_before_rounding(args, chunk, TC_PARTS) < 0.1
+
+
+@pytest.mark.parametrize("operand", ["u", "S", "W"])
+def test_two_parts_of_an_operand_lose_the_margin(mamba2_activations,
+                                                 operand):
+    """Why three parts: with one operand in two, the error before y's
+    rounding grows at least twofold (u 8x, S 2.4x, W 70x on this input),
+    and two parts of W miss the y gate outright."""
+    args, chunk = mamba2_activations
+    two = {**TC_PARTS, operand: 2}
+    assert _ulps_before_rounding(args, chunk, two) \
+        > 2 * _ulps_before_rounding(args, chunk, TC_PARTS)
+    if operand == "W":
+        assert _gate_failures(args, chunk, parts=two)[0] > 0
+
+
+@pytest.mark.parametrize("dtype,P,N,Q,route", [
+    (torch.bfloat16, 64, 128, 256, "tc"), (torch.bfloat16, 128, 64, 64, "tc"),
+    (torch.bfloat16, 64, 128, 128, "tc"), (torch.bfloat16, 64, 128, 96, "fma"),
+    (torch.bfloat16, 32, 128, 128, "fma"), (torch.float32, 64, 128, 256, "fma"),
+    (torch.float32, 64, 64, 96, "fma"), (torch.bfloat16, 64, 32, 256, None),
+    (torch.bfloat16, 48, 128, 256, None), (torch.float32, 64, 128, 512, None),
+    (torch.float16, 64, 128, 256, None)])
+def test_route_names_the_kernel_or_raises(dtype, P, N, Q, route):
+    if route is None:
+        with pytest.raises(ValueError):
+            ssd._route(dtype, P, N, Q)
+    else:
+        assert ssd._route(dtype, P, N, Q) == route
+
+
+@pytest.mark.parametrize("fn", [ssd_chunked_tc, ssd_chunked_fma])
+def test_route_entries_raise_on_a_cpu_tensor(fn):
+    args = _t(_ssd_inputs(13, 1, 256, 2, 64, 128), torch.bfloat16)
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(*args, chunk=128)
+    assert fn.launches == before
+
+
+def test_tc_entries_raise_on_what_they_do_not_take():
+    """Q 96 and float32 are the FMA kernel's, not the tensor-core route's."""
+    x, dt, B, C, A_log, D = _t(_ssd_inputs(14, 1, 192, 2, 64, 128),
+                               torch.bfloat16)
+    dts, da = ssd._discretize(dt, A_log)
+    with pytest.raises(ValueError, match="tensor-core"):
+        ssd_chunk_state(x, dts, da, B, chunk=96)
+    with pytest.raises(ValueError, match="tensor-core"):
+        ssd_chunk_state(x.float(), dts, da, B.float(), chunk=64)
+    la = torch.zeros((1, 192, 2))
+    with pytest.raises(ValueError, match="tensor-core"):
+        ssd_state_scan(la, torch.zeros((1, 2, 2, 64, 128)), chunk=96)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_chunk_out(x, dts, la, B, C, D, torch.zeros((1, 3, 2, 64, 128)),
+                      chunk=64)
 
 
 # ---------------------------------------------------------------------------
@@ -295,13 +515,21 @@ def cuda():
                                      (512, 128, 128, 128), (128, 64, 64, 64),
                                      (96, 256, 64, 128)])
 @pytest.mark.parametrize("slow", [False, True])
-def test_cuda_kernel_matches_plain(cuda, dtype, L, Q, P, N, slow):
+@pytest.mark.parametrize("route", ["routed", "fma"])
+def test_cuda_kernel_matches_plain(cuda, dtype, L, Q, P, N, slow, route):
+    """``routed``: ssd_chunked, which takes the tensor-core route for bf16
+    with P % 64 == 0 and Q % 64 == 0 and the FMA kernel otherwise; ``fma``:
+    the FMA kernel on every input, bf16 ones of the tensor-core route
+    included."""
     args = _t(_ssd_inputs(L + Q + P + N, 2, L, 3, P, N, slow), dtype, cuda)
     s0 = torch.randn((2, 3, P, N), device=cuda)
-    before = ssd_chunked.launches
-    y, s = ssd_chunked(*args, chunk=Q, init_state=s0)
+    fn = ssd_chunked if route == "routed" else ssd_chunked_fma
+    kernel = ssd._KERNELS[ssd._route(dtype, P, N, min(Q, L))] \
+        if route == "routed" else ssd_chunked_fma
+    before = fn.launches, kernel.launches
+    y, s = fn(*args, chunk=Q, init_state=s0)
     torch.cuda.synchronize()
-    assert ssd_chunked.launches == before + 1
+    assert (fn.launches, kernel.launches) == (before[0] + 1, before[1] + 1)
     py, ps = ssd_chunked_plain(*args, chunk=Q, init_state=s0)
     tol = BF16_ULP if dtype == torch.bfloat16 else {"atol": 2e-5,
                                                      "rtol": 2e-5}
@@ -313,7 +541,40 @@ def test_cuda_kernel_matches_plain(cuda, dtype, L, Q, P, N, slow):
     packed = torch.cat([x.reshape(2, L, H * P), B, C], dim=-1)
     views = (packed[..., :H * P].reshape(2, L, H, P),
              packed[..., H * P:H * P + N], packed[..., H * P + N:])
-    vy, vs = ssd_chunked(views[0], dt, views[1], views[2], A_log, D,
-                         chunk=Q, init_state=s0)
+    vy, vs = fn(views[0], dt, views[1], views[2], A_log, D, chunk=Q,
+                init_state=s0)
     torch.testing.assert_close(vy, y, atol=0, rtol=0)
     torch.testing.assert_close(vs, s, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,Q,P,N", [(512, 128, 64, 128), (512, 256, 64, 128),
+                                     (256, 64, 128, 64)])
+@pytest.mark.parametrize("slow", [False, True])
+def test_cuda_tc_stages_match_their_plain_stages(cuda, L, Q, P, N, slow):
+    """K1, K2 and K3 each against its plain stage on the plain stage's own
+    inputs: la and ds at 2e-5, the states entering the chunks and the
+    final state at 2e-5, y at one bf16 ulp."""
+    x, dt, B, C, A_log, D = _t(_ssd_inputs(L + Q + N, 2, L, 3, P, N, slow),
+                               torch.bfloat16, cuda)
+    s0 = torch.randn((2, 3, P, N), device=cuda)
+    dts, da = ssd._discretize(dt, A_log)
+    before = [f.launches for f in (ssd_chunk_state, ssd_state_scan,
+                                   ssd_chunk_out)]
+    la, ds = ssd_chunk_state(x, dts, da, B, chunk=Q)
+    pla, pds = ssd_chunk_state_plain(x, dts, da, B, chunk=Q)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(la, pla, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(ds, pds, atol=2e-5, rtol=2e-5)
+    st = pds.clone()
+    state = ssd_state_scan(pla, st, chunk=Q, init_state=s0)
+    s_in, pstate = ssd_state_scan_plain(pla, pds, chunk=Q, init_state=s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(st, s_in, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(state, pstate, atol=2e-5, rtol=2e-5)
+    y = ssd_chunk_out(x, dts, pla, B, C, D, s_in, chunk=Q)
+    py = ssd_chunk_out_plain(x, dts, pla, B, C, D, s_in, chunk=Q)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, py, **BF16_ULP)
+    assert [f.launches for f in (ssd_chunk_state, ssd_state_scan,
+                                 ssd_chunk_out)] == [n + 1 for n in before]

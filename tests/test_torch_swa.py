@@ -179,6 +179,34 @@ def test_wrapper_raises_like_the_reference_asserts(bad, err):
             fn(q, k, v, window=W, scale=0.125)
 
 
+@pytest.mark.parametrize("S,window", [(256, 64), (384, 192), (320, 64)])
+def test_plain_takes_a_window_that_divides_s(jref, S, window):
+    """A window that is not a multiple of the kernels' 128-row tile runs on
+    the CPU where it divides S, as the model zoo's swa_attention."""
+    arrays = _qkv(S + window, 1, 4, 2, S, 64)
+    out = swa_attention(*_to_torch(arrays), window=window, scale=0.125)
+    t = [jref.jnp.asarray(a).transpose(0, 2, 1, 3) for a in arrays]
+    exp = jref.model_swa(*t, window=window, scale=0.125).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("fn", [swa_attention_wgmma, swa_attention_fma])
+def test_kernel_entries_raise_on_a_window_off_the_tile(fn):
+    """On the card both kernels tile S by 128 rows: a window of 64 raises
+    with that reason before any launch (checked here without a card: the
+    tile check comes before the device check)."""
+    q, k, v = _to_torch(_qkv(10, 1, 2, 1, 256, 64), torch.bfloat16)
+    before = fn.launches
+    with pytest.raises(ValueError, match="tile S by 128 rows"):
+        fn(q, k, v, window=64, scale=0.125)
+    assert fn.launches == before
+    swa._check_tiles(256, 128)
+    swa._check_tiles(384, 256)
+    for S, window in ((256, 64), (320, 128), (384, 192)):
+        with pytest.raises(ValueError, match="tile S by 128 rows"):
+            swa._check_tiles(S, window)
+
+
 # ---------------------------------------------------------------------------
 # the wgmma kernel's numerics, emulated on the CPU
 # ---------------------------------------------------------------------------

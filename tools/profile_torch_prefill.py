@@ -8,7 +8,7 @@ before it), then
   * times ``--warm`` further passes of the same prefill step on the same
     weights and tokens with CUDA events (ms a pass, tokens/s);
   * profiles one more pass with ``torch.profiler``: device time per kernel
-    name and per class (the SWA kernel, the SSD kernel, cuBLAS matrix
+    name and per class (the SWA kernel, each SSD kernel, cuBLAS matrix
     products, the rest),
     and the union of kernel intervals against the host wall time of the
     synchronised pass (device busy and idle share).
@@ -37,11 +37,16 @@ from pathlib import Path
 from profile_torch_serve import GEMM_MARKS, _union_us
 
 
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_scan", "ssd_chunk_out",
+               "ssd_chunked")
+
+
 def kernel_class(name: str) -> str:
     if "swa_attention" in name:
         return "swa_attention kernel"
-    if "ssd_chunked" in name:
-        return "ssd_chunked kernel"
+    for k in SSD_KERNELS:
+        if k in name:
+            return f"{k} kernel"
     if any(m in name.lower() for m in GEMM_MARKS):
         return "cuBLAS matmul"
     return "other"
