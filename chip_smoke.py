@@ -71,7 +71,24 @@ raises and the script exits non-zero:
    held to it (one bf16 ulp on y), which must give the served logits bit
    for bit; then a float32 copy of the model with the FMA kernel and with
    the plain SSD, logits within 1e-4 of the largest and the same greedy
-   tokens.
+   tokens;
+11. drive DyPe's streaming serving path: ``repro_torch.launch.serve
+   --stream --backend torch`` in process (TrafficSim's four-signature mix,
+   120 s of traffic at peak 10 req/s, two FPGAs failing at 40 s and
+   rejoining at 80 s, wall-clock calibration over 4 reports, async
+   dispatch) through Router -> Engine -> DP -> ``TorchPipelineBackend``,
+   whose spmm stages run the row-wise CSR SpMM kernel; launch counters set
+   to 0 just before and read just after (more than 0 ``spmm_csr_rows``
+   launches, none of the other kernels). The same stream on the analytic
+   backend must give the same completed, dropped, reschedules, sorted
+   latencies and schedules; every spmm product of every payload the stream
+   prepared, at each microbatch count, is held bit for bit to the plain
+   version and to 0.5 * roll; one microbatch through each card payload is
+   held to the same payload built on the CPU (1e-5); the calibrator must
+   have locked at least one (cell, stage) scale. It prints the stream's
+   wall seconds, simulated req/s, batches, the mean and p50 device ms a
+   batch (CUDA events), and the card's busy share of a second, profiled
+   run of the stream.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -109,6 +126,12 @@ BF16_FLOP_PER_S = 989e12             # H100 SXM, dense bf16 tensor cores
 PREFILL = {"arch": "qwen3-4b", "batch": 2, "prompt_len": 16384}
 SSD_PREFILL = {"arch": "mamba2-780m", "shape": "prefill_32k", "batch": 4,
                "prompt_len": 32768}
+# the reference launcher's documented stream (repro/launch/serve.py:6-8)
+STREAM_ARGV = ["--stream", "--duration", "120", "--day", "120",
+               "--peak-rate", "10", "--trough-rate", "0.5", "--fail-at", "40",
+               "--rejoin-at", "80", "--fail-count", "2", "--calibrate-wall",
+               "4", "--seed", "0"]
+PAYLOAD_TOL = 1e-5        # card payload vs CPU payload (tests' tolerance)
 
 
 def phase(name):
@@ -562,6 +585,59 @@ def holding_ssd(errs):
     return call
 
 
+def union_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def holding_spmm(shapes, act_batch):
+    """A stand-in for ``ops.spmm_csr_rows`` on the stream's ring graph:
+    launches the kernel, holds its output bit for bit to the plain version
+    on the same card tensors and to 0.5 * roll along each microbatch's
+    rows, and returns the kernel's. Each call's x shape goes to
+    ``shapes``."""
+    import torch
+    from repro_torch.kernels import spmm_csr_rows, spmm_csr_rows_plain
+
+    def call(indptr, indices, values, x):
+        out = spmm_csr_rows(indptr, indices, values, x)
+        plain = spmm_csr_rows_plain(indptr, indices, values, x)
+        m, f = x.shape[0] // act_batch, x.shape[1]
+        roll = (0.5 * torch.roll(x.reshape(m, act_batch, f), 1, dims=1)) \
+            .reshape(x.shape)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, plain) and torch.equal(out, roll)):
+            raise AssertionError(f"spmm_csr_rows on the stream's ring graph, "
+                                 f"x {tuple(x.shape)}: differs from the "
+                                 f"plain version or from 0.5 * roll")
+        shapes.append(tuple(x.shape))
+        return out
+    return call
+
+
+def stream(argv):
+    """Run ``repro_torch.launch.serve --stream`` in process; returns
+    ``(router, snapshot, wall seconds, summary lines)``. The per-batch log
+    lines are counted, not printed."""
+    import contextlib
+    import io
+    from repro_torch.launch.serve import parser, run_stream
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        router, _, snap, wall = run_stream(parser().parse_args(argv))
+    lines = out.getvalue().splitlines()
+    summary = [l for l in lines if not l.startswith("[serve]   ")]
+    summary.append(f"[serve] ({len(lines) - len(summary)} router and engine "
+                   f"log lines)")
+    return router, snap, wall, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -585,6 +661,7 @@ def main():
     from repro_torch.launch.serve_pipeline import gcn_plain, serve
     from repro_torch.models import ssm as ssm_model
     from repro_torch.models.common import tree_map
+    from repro_torch.runtime import TorchPipelineBackend
     from repro_torch.sparse import csr_from_dense
 
     dev = torch.device("cuda", 0)
@@ -997,11 +1074,166 @@ def main():
         raise AssertionError("the float32 forward's logits differ between "
                              "the kernel and the plain SSD")
     torch.cuda.synchronize()
+    del mam, held, kern, plain, step32
+    torch.cuda.empty_cache()
+
+    # 11) DyPe streaming serving on the torch backend
+    phase("11. main path: DyPe streaming serving, Router -> Engine -> DP -> "
+          "TorchPipelineBackend, 120 s of traffic")
+    prepared, futures = {}, []
+    real_prepare = TorchPipelineBackend.prepare
+    real_submit = TorchPipelineBackend.submit
+
+    def recording_prepare(self, schedule, workload, *, epoch=0):
+        h = real_prepare(self, schedule, workload, epoch=epoch)
+        prepared.setdefault(id(h.payload), (self, h.payload, schedule,
+                                            workload))
+        return h
+
+    def recording_submit(self, handle, batch, t0):
+        fut = real_submit(self, handle, batch, t0)
+        futures.append(fut)
+        return fut
+
+    torch_argv = STREAM_ARGV + ["--backend", "torch"]
+    counters = (spmm_blocked_ell, swa_attention, swa_attention_wgmma,
+                swa_attention_fma, ssd_chunked, ssd_chunked_tc,
+                ssd_chunked_fma) + ssd_stages
+    with mock.patch.object(TorchPipelineBackend, "prepare",
+                           recording_prepare), \
+            mock.patch.object(TorchPipelineBackend, "submit",
+                              recording_submit):
+        spmm_csr_rows.launches = 0
+        for f in counters:
+            f.launches = 0
+        router, snap, wall, summary = stream(torch_argv)
+        torch.cuda.synchronize()
+        stream_launches = spmm_csr_rows.launches
+        others = {f.__name__: f.launches for f in counters if f.launches}
+    print("\n".join(summary), flush=True)
+    reports = [f.result() for f in futures]
+    batch_ms = sorted(sum(r.measured_stage_times) * 1e3 for r in reports)
+    backend = router.engine.backend
+    cal = router.calibrator
+    scales = [st[1] for st in cal._state.values()
+              if st[0] >= cal.skip + cal.warmup]
+    sim_s = STREAM_ARGV[STREAM_ARGV.index("--duration") + 1]
+    stream_row = {
+        "wall_s": wall, "simulated_s": float(sim_s),
+        "completed": snap.completed, "dropped": snap.dropped,
+        "sim_req_per_s": snap.throughput, "batches": len(router.dispatches),
+        "reports": len(reports),
+        "device_ms_per_batch_mean": sum(batch_ms) / len(batch_ms),
+        "device_ms_per_batch_p50": batch_ms[(len(batch_ms) - 1) // 2],
+        "device_ms_total": sum(batch_ms),
+        "spmm_csr_rows_launches": stream_launches,
+        "payloads": len(prepared), "calibrated_cells": len(scales),
+        "calibrated_cell_stages": sum(len(sc) for sc in scales),
+        "schedules": sorted({d.mnemonic for d in router.dispatches}),
+        "reschedules": snap.reschedules}
+    print(f"[stream] {stream_row['simulated_s']:.0f} s of traffic in "
+          f"{wall:.3f} s wall; {snap.completed} completed, {snap.dropped} "
+          f"dropped, {snap.throughput:.3f} simulated req/s; "
+          f"{stream_row['batches']} batches; device ms a batch (events) mean "
+          f"{stream_row['device_ms_per_batch_mean']:.4f}, p50 "
+          f"{stream_row['device_ms_per_batch_p50']:.4f}; spmm_csr_rows "
+          f"launches {stream_launches}; other kernels {others or 'none'}; "
+          f"{stream_row['calibrated_cell_stages']} (cell, stage) scales "
+          f"locked in {len(scales)} cells", flush=True)
+    if backend.name != "torch" or backend.device.type != "cuda":
+        raise AssertionError(f"the stream ran on {backend.name} "
+                             f"{getattr(backend, 'device', None)}")
+    if stream_launches <= 0 or others:
+        raise AssertionError(f"expected spmm_csr_rows launches and no "
+                             f"other kernel's in the stream, saw "
+                             f"{stream_launches} and {others}")
+    if len(reports) != len(router.dispatches) or not all(
+            len(r.measured_stage_times) and all(t > 0 for t in
+                                                r.measured_stage_times)
+            for r in reports):
+        raise AssertionError("a batch of the stream has no event timing")
+    if not scales:
+        raise AssertionError("the calibrator locked no (cell, stage) scale "
+                             "from the event-timed reports")
+    # the same stream on the analytic backend
+    a_router, a_snap, a_wall, a_summary = stream(
+        STREAM_ARGV + ["--backend", "analytic"])
+    print("\n".join(a_summary), flush=True)
+    same = {
+        "completed": (snap.completed, a_snap.completed),
+        "dropped": (snap.dropped, a_snap.dropped),
+        "reschedules": (snap.reschedules, a_snap.reschedules),
+        "latencies": (sorted(router.metrics.latencies),
+                      sorted(a_router.metrics.latencies)),
+        "schedules": (stream_row["schedules"],
+                      sorted({d.mnemonic for d in a_router.dispatches}))}
+    differ = [k for k, (a, b) in same.items() if a != b]
+    print(f"[check] torch vs analytic stream: {', '.join(same)} "
+          f"{'differ in ' + str(differ) if differ else 'equal'}", flush=True)
+    if differ:
+        print("\n".join(l for l in router.log if "straggler" in l))
+        raise AssertionError(f"the torch stream differs from the analytic "
+                             f"one in {differ}")
+    if snap.completed < 500 or snap.reschedules.get("resize", 0) < 2:
+        raise AssertionError(f"not the documented stream: {snap}")
+    # every spmm product of every prepared payload, at each microbatch
+    # count the stream used, held to the plain version; each card payload
+    # held to the same payload built on the CPU
+    micro_counts = sorted({max(1, min(d.n, backend.max_micro))
+                           for d in router.dispatches})
+    shapes, payload_errs = [], []
+    with mock.patch.object(ops, "spmm_csr_rows",
+                           holding_spmm(shapes, backend.act_batch)), \
+            torch.inference_mode():
+        for be, payload, schedule, workload in prepared.values():
+            for m in micro_counts:
+                payload(be._micro(m))
+            cpu_be = TorchPipelineBackend(
+                act_batch=be.act_batch, act_dim=be.act_dim,
+                max_micro=be.max_micro, device="cpu")
+            want = cpu_be.prepare(schedule, workload).payload(
+                cpu_be._micro(be.max_micro))
+            got = payload(be._micro(be.max_micro)).cpu()
+            torch.testing.assert_close(got, want, atol=PAYLOAD_TOL,
+                                       rtol=PAYLOAD_TOL)
+            payload_errs.append(float((got - want).abs().max()))
+    torch.cuda.synchronize()
+    print(f"[check] {len(shapes)} spmm products of {len(prepared)} payloads "
+          f"at microbatch counts {micro_counts} (x shapes "
+          f"{sorted(set(shapes))}) equal the plain version and 0.5 * roll "
+          f"bit for bit; card vs CPU payload max abs err "
+          f"{max(payload_errs):.3e} (limit {PAYLOAD_TOL})", flush=True)
+    if not shapes:
+        raise AssertionError("no prepared payload has an spmm stage")
+    # the card's busy share, from a second run of the stream profiled
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p_router, p_snap, _, _ = stream(torch_argv)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy_s = union_us(spans) / 1e6
+    stream_row.update({"profiled_wall_s": p_wall, "device_busy_s": busy_s,
+                       "busy_share": busy_s / p_wall,
+                       "profiled_kernels": len(spans),
+                       "profiled_completed": p_snap.completed})
+    print(f"[stream] profiled run: {p_wall:.3f} s wall, card busy "
+          f"{busy_s * 1e3:.3f} ms over {len(spans)} kernels and copies "
+          f"(busy share {busy_s / p_wall:.6f}, profiler on); "
+          f"{p_snap.completed} completed", flush=True)
+    if not spans:
+        raise AssertionError("the profiler saw no device time in the stream")
+    print(json.dumps({"stream": stream_row}), flush=True)
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_csr_rows.cu",
         "replaces": "src/repro/kernels/spmm.py:72", "launches": launches,
+        "stream_launches": stream_launches,
         "max_abs_err": max(r["max_abs_err"] for r in csr_rows),
         "ms": oa_csr["ms"], "plain_ms": oa_csr["plain_ms"],
         "bound_ms": oa_csr["bound_ms"], "bound_by": oa_csr["bound_by"],
