@@ -88,7 +88,30 @@ raises and the script exits non-zero:
    have locked at least one (cell, stage) scale. It prints the stream's
    wall seconds, simulated req/s, batches, the mean and p50 device ms a
    batch (CUDA events), and the card's busy share of a second, profiled
-   run of the stream.
+   run of the stream;
+12. drive DyPe's multi-host control plane: ``serve --stream --cluster 2
+   --backend torch`` in process, two in-process workers, each a
+   ``TorchPipelineBackend`` on the card, behind the Controller and
+   ``ClusterBackend``, in the documented scenarios (120 s at peak 10
+   req/s, calibration over 4 reports): a worker killed at 40 s, a
+   declared 60x host with stealing, hot-cell replication with migration,
+   learned profiles of an undeclared 60x host (peak 24), predictive
+   autoscaling, and the Pareto governor under a 700 W cap of the DyPe
+   energy model with a 30 J SLO (60 s). Launch counters set to 0 just
+   before each torch run and read just after (more than 0
+   ``spmm_csr_rows`` launches, none of the other kernels); every worker's
+   backend on the card; every report event-timed. Each torch run is paired
+   with the same command on the analytic backend: the cluster event log's
+   JSONL byte-identical (all but the learned-profile run, which learns
+   from card time and prints both runs' learned profiles), and in the
+   kill run equal completed, dropped, requeued, sorted latencies and
+   schedules, no request lost, and a replay of the recorded log on the
+   card recording the same log again; the governor's watts, joules a
+   request and operating-point switches equal. Then one remote worker, a
+   spawned process running the torch backend on the card: ping, prepare
+   and a submit of 2, whose report's finishes equal the analytic ones and
+   whose stage times are event-timed; it prints the spawn-to-report wall.
+   It prints a ``{"cluster": {...}}`` line.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -132,6 +155,24 @@ STREAM_ARGV = ["--stream", "--duration", "120", "--day", "120",
                "--rejoin-at", "80", "--fail-count", "2", "--calibrate-wall",
                "4", "--seed", "0"]
 PAYLOAD_TOL = 1e-5        # card payload vs CPU payload (tests' tolerance)
+# phase 12: the documented cluster, fleet and governor commands
+# (docs/cluster.md:233-236, docs/heterogeneity.md:192, docs/fleet.md:203-209,
+# docs/energy.md:130-131) on the phase-11 traffic; later flags win
+CLUSTER_ARGV = ["--stream", "--duration", "120", "--day", "120",
+                "--peak-rate", "10", "--trough-rate", "0.5",
+                "--calibrate-wall", "4", "--seed", "0", "--cluster", "2"]
+CLUSTER_SCENARIOS = {
+    "kill": ["--kill-worker", "40"],
+    "steal": ["--host-profiles", "w1=60", "--steal"],
+    "replicate": ["--replicate-hot", "2", "--forecast-horizon", "5",
+                  "--migrate"],
+    "learn": ["--peak-rate", "24", "--true-host-profiles", "w1=60",
+              "--learn-profiles", "--steal"],
+    "autoscale": ["--autoscale", "--forecast-horizon", "5",
+                  "--mode-cooldown", "5"],
+    "governor": ["--duration", "60", "--governor", "--forecast-horizon", "5",
+                 "--power-cap-w", "700", "--energy-slo-j", "30"],
+}
 
 
 def phase(name):
@@ -627,15 +668,209 @@ def stream(argv):
     lines are counted, not printed."""
     import contextlib
     import io
-    from repro_torch.launch.serve import parser, run_stream
+    from repro_torch.launch.serve import parse_args, run_stream
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        router, _, snap, wall = run_stream(parser().parse_args(argv))
+        router, _, snap, wall = run_stream(parse_args(argv))
     lines = out.getvalue().splitlines()
     summary = [l for l in lines if not l.startswith("[serve]   ")]
     summary.append(f"[serve] ({len(lines) - len(summary)} router and engine "
                    f"log lines)")
     return router, snap, wall, summary
+
+
+def lost_requests(router, snap):
+    """Admitted requests neither completed nor dropped, plus what is left
+    queued or in flight after the drain."""
+    return (router.queue.stats.admitted - snap.completed - snap.dropped
+            + len(router.queue) + len(router.engine.inflight))
+
+
+def cluster_scenario(name, extra, counters):
+    """Phase 12, one scenario: ``serve --stream --cluster 2`` on the torch
+    backend (the card) and on the analytic backend with the same argv,
+    held to each other; returns (its row, spmm_csr_rows launches)."""
+    import torch
+    from repro_torch.kernels import spmm_csr_rows
+    from repro_torch.runtime import TorchPipelineBackend
+
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    logs = {b: out / f"cluster_{name}_{b}.jsonl"
+            for b in ("torch", "analytic", "replay")}
+    reports = []
+    real_execute = TorchPipelineBackend.execute
+
+    def recording_execute(self, handle, batch, t0):
+        rep = real_execute(self, handle, batch, t0)
+        reports.append(rep)
+        return rep
+
+    argv = CLUSTER_ARGV + extra
+    with mock.patch.object(TorchPipelineBackend, "execute",
+                           recording_execute):
+        spmm_csr_rows.launches = 0
+        for f in counters:
+            f.launches = 0
+        router, snap, wall, summary = stream(
+            argv + ["--backend", "torch", "--record-cluster-events",
+                    str(logs["torch"])])
+        torch.cuda.synchronize()
+        launches = spmm_csr_rows.launches
+        others = {f.__name__: f.launches for f in counters if f.launches}
+    a_router, a_snap, a_wall, a_summary = stream(
+        argv + ["--record-cluster-events", str(logs["analytic"])])
+    ctrl = router.engine.backend.controller
+    devices = {wid: (link.peer.core.backend.name,
+                     str(link.peer.core.backend.device))
+               for wid, link in ctrl.links.items()}
+    batch_ms = sorted(sum(r.measured_stage_times) * 1e3 for r in reports)
+    row = {"wall_s": wall, "analytic_wall_s": a_wall,
+           "completed": snap.completed, "dropped": snap.dropped,
+           "requeued": snap.requeued, "steals": snap.steals,
+           "events": len(ctrl.events), "batches": len(reports),
+           "spmm_csr_rows_launches": launches,
+           "device_ms_per_batch_mean": sum(batch_ms) / max(len(batch_ms), 1),
+           "device_ms_per_batch_p50": (batch_ms[(len(batch_ms) - 1) // 2]
+                                       if batch_ms else None),
+           "host_ms_per_batch": wall * 1e3 / max(len(reports), 1),
+           "lost": lost_requests(router, snap), "workers": devices}
+    same_log = logs["torch"].read_bytes() == logs["analytic"].read_bytes()
+    row["log_equal"] = same_log
+    print("\n".join(summary), flush=True)
+    print(f"[cluster {name}] torch: {snap.completed} completed, "
+          f"{snap.dropped} dropped, {snap.requeued} requeued, "
+          f"{snap.steals} steals, {row['events']} events in {wall:.3f} s "
+          f"wall ({row['host_ms_per_batch']:.4f} host ms a batch); "
+          f"{len(reports)} batches, device ms a batch (events) mean "
+          f"{row['device_ms_per_batch_mean']:.4f}, p50 "
+          f"{row['device_ms_per_batch_p50']}; spmm_csr_rows launches "
+          f"{launches}; other kernels {others or 'none'}; workers "
+          f"{devices}; event log "
+          f"{'equal to' if same_log else 'DIFFERS from'} the analytic "
+          f"run's", flush=True)
+    if any(d != ("torch", str(torch.device("cuda", 0)))
+           for d in devices.values()):
+        raise AssertionError(f"{name}: a worker is not torch on the card: "
+                             f"{devices}")
+    if launches <= 0 or others:
+        raise AssertionError(f"{name}: expected spmm_csr_rows launches and "
+                             f"no other kernel's, saw {launches} and "
+                             f"{others}")
+    if not reports or not all(len(r.measured_stage_times) and all(
+            t > 0 for t in r.measured_stage_times) for r in reports):
+        raise AssertionError(f"{name}: a cluster batch has no event timing")
+    if row["lost"] or lost_requests(a_router, a_snap):
+        raise AssertionError(f"{name}: requests lost: torch {row['lost']}, "
+                             f"analytic {lost_requests(a_router, a_snap)}")
+    if name == "learn":
+        # learned from card time here, from the schedule model there
+        for backend, lines in (("torch", summary), ("analytic", a_summary)):
+            row[f"learned_{backend}"] = [
+                l for l in lines if "learned profile" in l or "gated" in l]
+        print(f"[cluster learn] learned on torch: {row['learned_torch']}; "
+              f"on analytic: {row['learned_analytic']}", flush=True)
+        return row, launches
+    if not same_log:
+        raise AssertionError(f"{name}: the torch run's cluster event log "
+                             f"differs from the analytic run's")
+    same = {"completed": (snap.completed, a_snap.completed),
+            "dropped": (snap.dropped, a_snap.dropped),
+            "requeued": (snap.requeued, a_snap.requeued),
+            "steals": (snap.steals, a_snap.steals),
+            "latencies": (sorted(router.metrics.latencies),
+                          sorted(a_router.metrics.latencies)),
+            "schedules": (sorted({d.mnemonic for d in router.dispatches}),
+                          sorted({d.mnemonic for d in a_router.dispatches})),
+            "watts_mean": (snap.watts_mean, a_snap.watts_mean),
+            "joules_per_req": (snap.joules_per_req, a_snap.joules_per_req),
+            "opoint_switches": (snap.opoint_switches,
+                                a_snap.opoint_switches)}
+    differ = [k for k, (a, b) in same.items() if a != b]
+    if differ:
+        raise AssertionError(f"{name}: torch vs analytic differ in {differ}")
+    if name == "kill":
+        if not snap.requeued or "failure" not in ctrl.events.kinds():
+            raise AssertionError("kill: no worker loss, or nothing requeued")
+        # the recorded log replayed on the card records the same log
+        r_router, r_snap, _, _ = stream(
+            CLUSTER_ARGV + ["--backend", "torch", "--replay-cluster-events",
+                            str(logs["torch"]), "--record-cluster-events",
+                            str(logs["replay"])])
+        if logs["replay"].read_bytes() != logs["torch"].read_bytes():
+            raise AssertionError("kill: the replay on the card recorded "
+                                 "another log")
+        row["replay_log_equal"] = True
+    if name == "steal" and not snap.steals:
+        raise AssertionError("steal: no batch was stolen")
+    if name == "governor":
+        row.update(watts_mean=snap.watts_mean,
+                   joules_per_req=snap.joules_per_req,
+                   opoint_switches=snap.opoint_switches)
+    print(f"[check] {name}: torch vs analytic event log byte for byte, "
+          f"{', '.join(same)} equal"
+          + ("; the replay records the same log" if name == "kill" else ""),
+          flush=True)
+    return row, launches
+
+
+def remote_torch_worker():
+    """Phase 12: one spawned worker process running the torch backend on
+    the card (tests/test_cluster.py:61 with backend="torch"); returns its
+    row with the spawn-to-first-report wall."""
+    from repro_torch.cluster import mp_worker
+    from repro_torch.core import (DATASETS, DynamicScheduler, PerfModel,
+                                  gcn_workload, paper_system)
+    from repro_torch.runtime import AnalyticBackend
+
+    wl = gcn_workload(DATASETS["OA"])
+    dyn = DynamicScheduler(paper_system("pcie4"), PerfModel(), mode="perf")
+    res = dyn.submit(wl)
+    t0 = time.perf_counter()
+    chan, proc = mp_worker("mp0", {"FPGA": 3, "GPU": 2}, backend="torch")
+    try:
+        chan.send({"op": "ping", "echo": 42})
+        pong = chan.recv_wait(timeout=300.0)
+        t_pong = time.perf_counter() - t0
+        chan.send({"op": "prepare", "hid": 0, "schedule": res,
+                   "workload": wl, "epoch": dyn.epoch})
+        prepared = chan.recv_wait(timeout=120.0)
+        chan.send({"op": "submit", "hid": 0, "sid": 7, "n": 2, "t0": 1.0})
+        acc = chan.recv_wait(timeout=120.0)
+        rep = chan.recv_wait(timeout=120.0)
+        t_report = time.perf_counter() - t0
+        chan.send({"op": "stop"})
+    finally:
+        proc.join(timeout=120.0)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    want = AnalyticBackend().execute(AnalyticBackend().prepare(res, wl), 2,
+                                     1.0)
+    report = rep["report"] if rep else None
+    row = {"spawn_to_pong_s": t_pong, "spawn_to_report_s": t_report,
+           "exitcode": proc.exitcode,
+           "measured_stage_times": (list(report.measured_stage_times)
+                                    if report else None)}
+    print(f"[remote] spawned torch worker: pong after {t_pong:.3f} s, first "
+          f"report after {t_report:.3f} s; measured stage times "
+          f"{row['measured_stage_times']}; exit code {proc.exitcode}",
+          flush=True)
+    if pong != {"op": "pong", "wid": "mp0", "echo": 42} or \
+            prepared["op"] != "prepared" or acc["op"] != "accepted":
+        raise AssertionError(f"remote worker protocol: {pong}, {prepared}, "
+                             f"{acc}")
+    if rep["op"] != "report" or report.finishes != want.finishes:
+        raise AssertionError(f"remote worker report {rep} differs from the "
+                             f"analytic finishes {want.finishes}")
+    if not report.measured_stage_times or not all(
+            t > 0 for t in report.measured_stage_times):
+        raise AssertionError("the remote report has no event timing")
+    if proc.exitcode != 0:
+        raise AssertionError(f"remote worker exited {proc.exitcode}")
+    print("[check] remote torch worker: finishes equal the analytic "
+          "backend's; stage times event-timed; exit 0", flush=True)
+    return row
 
 
 def main():
@@ -1229,11 +1464,30 @@ def main():
         raise AssertionError("the profiler saw no device time in the stream")
     print(json.dumps({"stream": stream_row}), flush=True)
 
+    # 12) the multi-host control plane with torch workers on the card
+    phase("12. main path: DyPe's cluster control plane, serve --stream "
+          "--cluster 2, every worker a TorchPipelineBackend on the card")
+    cluster_row = {"single_host_device_ms_per_batch_mean":
+                   stream_row["device_ms_per_batch_mean"],
+                   "single_host_device_ms_per_batch_p50":
+                   stream_row["device_ms_per_batch_p50"],
+                   "single_host_host_ms_per_batch":
+                   stream_row["wall_s"] * 1e3 / stream_row["batches"],
+                   "scenarios": {}}
+    cluster_launches = 0
+    for name, extra in CLUSTER_SCENARIOS.items():
+        row, launched = cluster_scenario(name, extra, counters)
+        cluster_row["scenarios"][name] = row
+        cluster_launches += launched
+    cluster_row["remote_worker"] = remote_torch_worker()
+    print(json.dumps({"cluster": cluster_row}), flush=True)
+
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_csr_rows.cu",
         "replaces": "src/repro/kernels/spmm.py:72", "launches": launches,
         "stream_launches": stream_launches,
+        "cluster_launches": cluster_launches,
         "max_abs_err": max(r["max_abs_err"] for r in csr_rows),
         "ms": oa_csr["ms"], "plain_ms": oa_csr["plain_ms"],
         "bound_ms": oa_csr["bound_ms"], "bound_by": oa_csr["bound_by"],

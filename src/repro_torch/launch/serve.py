@@ -9,6 +9,12 @@ serving path; see src/repro_torch/serving/):
       [--backend analytic|torch] [--device cpu] [--max-cells 2] [--sync] \\
       [--calibrate-wall N] [--probation N] \\
       [--record-trace t.jsonl | --replay-trace t.jsonl | --trace-in c.jsonl] \\
+      [--cluster N [--kill-worker T]] \\
+      [--host-profiles w1=4 | w1=4:0.5,w2=2] [--steal] [--host-oblivious] \\
+      [--true-host-profiles w1=60 --learn-profiles] [--autoscale] \\
+      [--forecast-horizon S] [--replicate-hot N] [--migrate] \\
+      [--governor [--power-cap-w W] [--energy-slo-j J]] \\
+      [--record-cluster-events e.jsonl | --replay-cluster-events e.jsonl] \\
       [--trace-out spans.jsonl] [--snapshot-every S]
 
 ``--backend torch`` runs every batch through ``TorchPipelineBackend``:
@@ -36,13 +42,96 @@ i.e. torch) learns a per-(cell, stage) wall->sim scale over N reports
 measurements to the straggler monitors — real measurements can demote a
 genuinely slow device instead of being telemetry-only.
 
-Not ported yet: the decode mode (``--arch``) and the cluster, fleet,
-energy, tenancy and dashboard flags of the reference's launcher.
+``--cluster N`` serves through the multi-host control plane
+(repro_torch.cluster): N in-process workers split the device pool, each
+running its own ``--backend`` instance (with ``--backend torch``, each a
+``TorchPipelineBackend`` on ``--device``, the card by default), with
+heartbeat failure detection. ``--kill-worker T`` crashes the last worker
+at simulated time T: heartbeat miss -> per-pool failures -> reschedule
+onto the survivors, the dead worker's in-flight batches re-queued (zero
+lost requests). The cluster event log records and replays through the
+``--*-cluster-events`` flags. A cluster worker runs each batch to its
+end before it answers (``WorkerCore`` calls the blocking ``execute``).
+
+Heterogeneous fleets: ``--host-profiles w1=4,w2=2:0.5`` declares
+per-worker ``HostProfile``s as ``wid=COMPUTE[:BW]`` pairs (w1 4x slower;
+w2 2x slower with half the bandwidth). The control plane is host-aware
+by default (cells place by effective throughput, each cell's DP re-solves
+for its host); ``--steal`` migrates pending batches from slow to
+dry-and-faster workers; ``--host-oblivious`` keeps device-count placement
+while the profiled hosts still run slow.
+
+Fleet management (repro_torch.fleet): ``--true-host-profiles w1=60``
+injects ground-truth physics the control plane cannot see, and
+``--learn-profiles`` learns each host's profile from measured-vs-
+expected stage times (on the torch backend, card seconds that reach it
+through ``--calibrate-wall``'s calibrator) and publishes it once
+confident. ``--forecast-horizon S`` drives the perf/energy policy from a
+Holt arrival forecast S seconds out; ``--autoscale`` pre-warms hot cells
+and parks/unparks workers; ``--replicate-hot N`` serves the hottest cell
+from up to N replicas and ``--migrate`` moves cells off a host learned
+slow. All decisions are derived cluster events, so recorded runs replay
+byte for byte.
+
+Energy governance (repro_torch.energy): ``--governor`` walks each
+signature's DP Pareto frontier against the arrival forecast (it needs
+``--forecast-horizon`` or ``--autoscale``); ``--power-cap-w W`` caps the
+fleet's modeled draw and ``--energy-slo-j J`` filters the frontier. Those
+watts and joules are the DyPe energy model's for the scheduled FPGA + GPU
+system, not the card's: nothing here reads the card's power.
+
+One CPU command for each (``--backend torch --device cpu`` prints what
+``--backend analytic`` prints, but for the lines with "wall" and the
+backend's name):
+
+  --stream --duration 120 --day 120 --peak-rate 10 --trough-rate 0.5 \\
+      --calibrate-wall 4 --backend torch --device cpu and then one of
+    --cluster 2 --kill-worker 40 --record-cluster-events e.jsonl
+    --cluster 2 --host-profiles w1=60 --steal
+    --cluster 2 --replicate-hot 2 --forecast-horizon 5 --migrate
+    --cluster 2 --peak-rate 24 --true-host-profiles w1=60 --learn-profiles \\
+        --steal
+    --cluster 2 --autoscale --forecast-horizon 5 --mode-cooldown 5
+    --duration 60 --cluster 2 --governor --forecast-horizon 5 \\
+        --power-cap-w 700 --energy-slo-j 30
+
+Not ported yet: the decode mode (``--arch``), tenancy (``--tenants``) and
+the dashboard (``--dashboard*``) of the reference's launcher.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+
+def parse_host_profiles(spec: str) -> dict:
+    """``w1=4,w2=2:0.5`` -> {wid: HostProfile} (COMPUTE[:BW] per worker).
+    Raises ValueError with the offending entry on malformed input (the
+    CLI surfaces it as an argparse error at startup, not a traceback
+    mid-stream)."""
+    from ..core import HostProfile
+
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        wid, eq, factors = part.partition("=")
+        comp, _, bw = factors.partition(":")
+        try:
+            if not eq or not wid.strip():
+                raise ValueError("missing wid= prefix")
+            compute, bw_scale = float(comp), float(bw) if bw else 1.0
+            if compute <= 0 or bw_scale <= 0:
+                raise ValueError("factors must be > 0")
+        except ValueError as e:
+            raise ValueError(
+                f"bad --host-profiles entry {part!r} "
+                f"(want wid=COMPUTE[:BW], factors > 0): {e}") from e
+        out[wid.strip()] = HostProfile(f"{wid.strip()}-x{comp}",
+                                       compute_scale=compute,
+                                       bw_scale=bw_scale)
+    return out
 
 
 def run_stream(args):
@@ -57,10 +146,67 @@ def run_stream(args):
     system = paper_system(args.interconnect)
     perf = PerfModel()
     dyn = DynamicScheduler(system, perf, mode="perf")
-    if args.backend == "torch":
-        backend = make_backend(args.backend, device=args.device)
+    # the torch backend's device goes to every worker of a cluster too;
+    # None is the card, which raises without one
+    backend_kw = {"device": args.device} if args.backend == "torch" else {}
+    cluster = None
+    if args.cluster:
+        from ..cluster import (ClusterEvent, ClusterEventLog, LocalCluster,
+                               split_pool)
+        script = []
+        if args.replay_cluster_events:
+            script = list(
+                ClusterEventLog.from_jsonl(args.replay_cluster_events)
+                .script())
+        if args.kill_worker is not None:
+            # split_pool drops empty sub-pools, so with more workers
+            # requested than devices the fleet is smaller than N — target
+            # the last worker that actually exists
+            n_actual = len(split_pool(system, args.cluster))
+            if n_actual < 2:
+                raise SystemExit(
+                    "--kill-worker would empty the fleet: total cluster "
+                    "loss is fatal (no capacity to reschedule onto); use "
+                    "--cluster 2 or more")
+            script.append(ClusterEvent(args.kill_worker, "kill",
+                                       f"w{n_actual - 1}"))
+        cluster = LocalCluster(system, args.cluster, backend=args.backend,
+                               backend_kw=backend_kw,
+                               script=tuple(script),
+                               profiles=args.host_profiles or None,
+                               truth_profiles=(args.true_host_profiles
+                                               or None),
+                               steal=args.steal,
+                               host_aware=not args.host_oblivious,
+                               replicate_hot=args.replicate_hot,
+                               migrate=args.migrate,
+                               perf=perf)
+        backend = cluster.backend()
     else:
-        backend = make_backend(args.backend)
+        backend = make_backend(args.backend, **backend_kw)
+    # fleet management (repro_torch.fleet): learned host profiles, arrival
+    # forecasting, predictive autoscaling
+    estimator = forecaster = autoscaler = None
+    if args.learn_profiles:
+        from ..fleet import OnlineHostEstimator
+        estimator = OnlineHostEstimator()
+    if args.forecast_horizon > 0 or args.autoscale:
+        from ..fleet import ArrivalForecaster
+        forecaster = ArrivalForecaster(
+            horizon=args.forecast_horizon or 5.0)
+    if args.autoscale:
+        from ..fleet import PredictiveAutoscaler
+        autoscaler = PredictiveAutoscaler(
+            forecaster, up=args.high_watermark, down=args.low_watermark)
+    # energy governance (repro_torch.energy): continuous Pareto operating
+    # points + fleet power cap + per-request energy SLO
+    governor = None
+    if args.governor:
+        from ..energy import ParetoGovernor, PowerBudget
+        budget = (PowerBudget(args.power_cap_w)
+                  if args.power_cap_w is not None else None)
+        governor = ParetoGovernor(budget=budget,
+                                  energy_slo_j=args.energy_slo_j)
     # observability: one Tracer fans spans out to the JSONL file;
     # None = NULL_TRACER (publish sites cost one attribute check)
     tracer = Tracer(JsonlTraceSink(args.trace_out)) if args.trace_out \
@@ -73,15 +219,26 @@ def run_stream(args):
         policy=LoadWatermarkPolicy(low=args.low_watermark,
                                    high=args.high_watermark,
                                    window=args.policy_window,
+                                   forecaster=forecaster,
                                    cooldown=args.mode_cooldown),
         backend=backend,
         max_cells=args.max_cells,
         async_mode=not args.sync,
         probation=(ProbationTracker(clean_epochs=args.probation)
                    if args.probation else None),
-        calibrator=(WallClockCalibrator(warmup=args.calibrate_wall)
+        calibrator=(WallClockCalibrator(warmup=args.calibrate_wall,
+                                        estimator=estimator)
                     if args.calibrate_wall else None),
         tracer=tracer)
+    if cluster is not None:
+        cluster.attach(router)
+        if estimator is not None:
+            estimator.attach(router, cluster.controller)
+        if autoscaler is not None:
+            autoscaler.attach(router, cluster.controller)
+    if governor is not None:
+        governor.attach(router,
+                        cluster.controller if cluster is not None else None)
     events = []
     if args.fail_at is not None:
         events.append(PoolEvent(args.fail_at, "fail", args.fail_dev,
@@ -134,6 +291,64 @@ def run_stream(args):
     if snap.requeued:
         print(f"[serve] requeued={snap.requeued} requests after lost "
               f"batches (zero silently dropped)")
+    if snap.steals:
+        print(f"[serve] steals={snap.steals} batches migrated to dry "
+              f"workers (recorded in the event log)")
+    if cluster is not None:
+        print(f"[serve] cluster: {len(cluster.controller.links)} workers, "
+              f"cross-worker overlap="
+              f"{cluster.cross_worker_overlap():.3f}x")
+        for line in cluster.controller.describe():
+            print(f"[serve]   {line}")
+        for ev in cluster.events:
+            print(f"[serve]   event t={ev.t:.2f} {ev.kind} {ev.worker} "
+                  f"{ev.detail}")
+        if args.record_cluster_events:
+            cluster.events.to_jsonl(args.record_cluster_events)
+            print(f"[serve] cluster events -> {args.record_cluster_events}")
+    if estimator is not None:
+        for wid in sorted(estimator.published):
+            prof = estimator.published[wid]
+            print(f"[serve] learned profile {wid}: "
+                  f"compute x{prof.compute_scale:g} bw x{prof.bw_scale:g}")
+        if not estimator.published:
+            print("[serve] learned profiles: none published "
+                  "(fleet matches belief)")
+        if estimator.gated:
+            print(f"[serve] estimator gated {estimator.gated} mismatched "
+                  f"reports away from the straggler monitors")
+    if forecaster is not None:
+        print(f"[serve] forecast: level={forecaster.level or 0.0:.2f}/s "
+              f"trend={forecaster.trend:+.3f}/s^2 "
+              f"horizon={forecaster.horizon:.0f}s")
+    if autoscaler is not None:
+        kinds = [a[1] for a in autoscaler.actions]
+        print(f"[serve] autoscaler: {kinds.count('prewarm')} prewarms, "
+              f"{kinds.count('park')} parks, "
+              f"{kinds.count('unpark')} unparks "
+              f"(util={autoscaler.last_util:.2f} at end)")
+    if governor is not None:
+        cap_txt = (f"{governor.last_cap:.1f}W"
+                   if governor.last_cap is not None else "none")
+        print(f"[serve] governor: watts_mean={snap.watts_mean:.1f}W "
+              f"watts_p95={snap.watts_p95:.1f}W cap={cap_txt} "
+              f"joules/req={snap.joules_per_req:.2f}J "
+              f"opoint_switches={snap.opoint_switches}")
+        if cluster is None:
+            # local mode: the governor's own log holds the derived
+            # opoint/power events (cluster mode prints them above)
+            for ev in governor.events:
+                if ev.kind == "opoint":
+                    print(f"[serve]   event t={ev.t:.2f} opoint "
+                          f"{ev.detail}")
+    if cluster is not None and (args.replicate_hot or args.migrate):
+        ev_kinds = [e.kind for e in cluster.events]
+        reps = {h: w for h, w in cluster.controller._replicas.items()
+                if len(w) > 1}
+        print(f"[serve] replication: {ev_kinds.count('replicate')} "
+              f"promotions, {ev_kinds.count('migrate')} migrations, "
+              f"{ev_kinds.count('retire')} retires "
+              f"({len(reps)} cells replicated at end)")
     if args.record_trace:
         sim.to_jsonl(args.record_trace)
         print(f"[serve] arrival trace -> {args.record_trace}")
@@ -190,9 +405,76 @@ def parser() -> argparse.ArgumentParser:
                     help="serve a converted real trace (compact rows, "
                          "workloads resolved by catalog name — e.g. "
                          "examples/traces/azure_llm_excerpt.jsonl)")
+    ap.add_argument("--cluster", type=int, default=0, metavar="N",
+                    help="serve through the multi-host control plane with "
+                         "N in-process workers splitting the device pool")
+    ap.add_argument("--kill-worker", type=float, metavar="T",
+                    help="crash the last cluster worker at sim time T "
+                         "(heartbeat-miss -> reschedule on survivors)")
     ap.add_argument("--probation", type=int, default=0, metavar="N",
                     help="re-admit straggler-demoted devices after N "
                          "clean epochs at reduced weight (0 = off)")
+    ap.add_argument("--host-profiles", metavar="SPEC",
+                    help="per-worker heterogeneity as wid=COMPUTE[:BW] "
+                         "pairs, e.g. 'w1=4' (w1 is 4x slower) or "
+                         "'w1=4:0.5,w2=2' (docs/heterogeneity.md)")
+    ap.add_argument("--steal", action="store_true",
+                    help="controller-side work stealing: migrate pending "
+                         "batches from slow to dry-and-faster workers")
+    ap.add_argument("--host-oblivious", action="store_true",
+                    help="legacy device-count placement that ignores host "
+                         "profiles (the hosts still run slow) — the "
+                         "baseline the heterogeneity layer beats")
+    ap.add_argument("--true-host-profiles", metavar="SPEC",
+                    help="ground-truth host physics the control plane "
+                         "cannot see (same wid=COMPUTE[:BW] syntax as "
+                         "--host-profiles): the workers run at these "
+                         "speeds while the controller still believes its "
+                         "declared profiles — the undeclared-slow-host "
+                         "scenario --learn-profiles discovers")
+    ap.add_argument("--learn-profiles", action="store_true",
+                    help="learn per-host profiles online from measured "
+                         "vs expected stage times (OnlineHostEstimator) "
+                         "and publish them into placement/DP/steal once "
+                         "confident — no --host-profiles needed")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="predictive autoscaling off the arrival "
+                         "forecast: pre-warm hot signature cells before "
+                         "peaks and park/unpark workers via the elastic "
+                         "join/leave path")
+    ap.add_argument("--replicate-hot", type=int, default=0, metavar="N",
+                    help="serve the forecaster's hottest signature cell "
+                         "from up to N replicas on distinct workers; "
+                         "dispatch routes each batch to the replica with "
+                         "the lowest estimated wait (needs a forecaster: "
+                         "--forecast-horizon or --autoscale)")
+    ap.add_argument("--migrate", action="store_true",
+                    help="live-migrate cells off a host when its learned "
+                         "profile shows it slow: drain to a replica on a "
+                         "faster worker, then retire — replaces the "
+                         "epoch-bump invalidation (zero dropped batches)")
+    ap.add_argument("--forecast-horizon", type=float, default=0.0,
+                    metavar="S",
+                    help="drive the perf/energy policy from a Holt "
+                         "arrival forecast S seconds ahead instead of "
+                         "the trailing-window rate (0 = reactive; "
+                         "--autoscale defaults this to 5)")
+    ap.add_argument("--governor", action="store_true",
+                    help="continuous Pareto operating-point governance "
+                         "(repro_torch.energy): pin each signature to the "
+                         "lowest-energy frontier point that clears its "
+                         "forecast demand, instead of the binary "
+                         "perf/energy watermark flip (needs a "
+                         "forecaster: --forecast-horizon or --autoscale)")
+    ap.add_argument("--power-cap-w", type=float, metavar="W",
+                    help="fleet power budget in watts: the governor "
+                         "force-downshifts the coldest cells while the "
+                         "modeled draw exceeds the cap (requires "
+                         "--governor)")
+    ap.add_argument("--energy-slo-j", type=float, metavar="J",
+                    help="energy SLO in joules per request: restrict "
+                         "operating points to those at or under J "
+                         "(requires --governor)")
     ap.add_argument("--mode-cooldown", type=float, default=0.0,
                     metavar="S",
                     help="minimum seconds between perf/energy mode "
@@ -202,6 +484,11 @@ def parser() -> argparse.ArgumentParser:
                     help="calibrate wall-clock measured stage times onto "
                          "the simulated clock over N reports so they can "
                          "drive straggler demotion (0 = telemetry only)")
+    ap.add_argument("--record-cluster-events", metavar="JSONL",
+                    help="write the cluster event log for later replay")
+    ap.add_argument("--replay-cluster-events", metavar="JSONL",
+                    help="replay the input events (kill/join/latency) of "
+                         "a recorded cluster event log")
     ap.add_argument("--trace-out", metavar="JSONL",
                     help="stream request spans to this JSONL file")
     ap.add_argument("--snapshot-every", type=float, default=0.0,
@@ -211,7 +498,9 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """Parse and check the launcher's arguments, as ``main`` runs them:
+    the host-profile specs come back parsed into ``{wid: HostProfile}``."""
     ap = parser()
     args = ap.parse_args(argv)
     if not args.stream:
@@ -221,7 +510,46 @@ def main(argv=None):
                  "(both replay an arrival JSONL)")
     if args.device is not None and args.backend != "torch":
         ap.error("--device applies to --backend torch only")
-    run_stream(args)
+    if (args.kill_worker is not None or args.record_cluster_events
+            or args.replay_cluster_events) and not args.cluster:
+        ap.error("--kill-worker/--*-cluster-events require --cluster N")
+    if (args.host_profiles or args.steal
+            or args.host_oblivious) and not args.cluster:
+        ap.error("--host-profiles/--steal/--host-oblivious require "
+                 "--cluster N")
+    if (args.true_host_profiles or args.learn_profiles
+            or args.autoscale) and not args.cluster:
+        ap.error("--true-host-profiles/--learn-profiles/--autoscale "
+                 "require --cluster N")
+    if (args.replicate_hot or args.migrate) and not args.cluster:
+        ap.error("--replicate-hot/--migrate require --cluster N")
+    if args.replicate_hot and not (args.forecast_horizon > 0
+                                   or args.autoscale):
+        ap.error("--replicate-hot needs an arrival forecaster: add "
+                 "--forecast-horizon S or --autoscale")
+    if args.governor and not (args.forecast_horizon > 0 or args.autoscale):
+        ap.error("--governor needs an arrival forecaster: add "
+                 "--forecast-horizon S or --autoscale")
+    if ((args.power_cap_w is not None or args.energy_slo_j is not None)
+            and not args.governor):
+        ap.error("--power-cap-w/--energy-slo-j require --governor")
+    if args.power_cap_w is not None and args.power_cap_w <= 0:
+        ap.error("--power-cap-w must be > 0")
+    try:
+        # parse once at startup (malformed specs die as argparse errors,
+        # not mid-stream tracebacks); run_stream consumes the dict
+        args.host_profiles = (parse_host_profiles(args.host_profiles)
+                              if args.host_profiles else {})
+        args.true_host_profiles = (
+            parse_host_profiles(args.true_host_profiles)
+            if args.true_host_profiles else {})
+    except ValueError as e:
+        ap.error(str(e))
+    return args
+
+
+def main(argv=None):
+    run_stream(parse_args(argv))
 
 
 if __name__ == "__main__":

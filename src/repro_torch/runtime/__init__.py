@@ -4,10 +4,10 @@ schedules from execution substrates, straggler mitigation, elastic
 rescaling."""
 from .pipeline_exec import (GroupedPipelineExecutor, PipelineExecutor,
                             pipeline_round_count)
-from .backend import (AnalyticBackend, BackendFuture, CompletionReport,
-                      ExecutionBackend, PipelineHandle, ReplayBackend,
-                      StageChain, TorchPipelineBackend, TraceRecorder,
-                      WorkerLost, make_backend, pipeline_fill)
+from .backend import (AnalyticBackend, BackendFuture, ClusterBackend,
+                      CompletionReport, ExecutionBackend, PipelineHandle,
+                      ReplayBackend, StageChain, TorchPipelineBackend,
+                      TraceRecorder, WorkerLost, make_backend, pipeline_fill)
 from .straggler import (ProbationTracker, StragglerMonitor,
                         WallClockCalibrator)
 from .elastic import ElasticRuntime, PoolState

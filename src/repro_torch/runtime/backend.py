@@ -40,7 +40,9 @@ Three implementations ship:
     (``TraceRecorder`` wraps any backend and captures them), for replaying
     production behavior in tests and what-if studies.
 
-A multi-host ``ClusterBackend`` is not part of the port yet.
+Behind any of them, ``ClusterBackend`` routes handles to the workers of
+a ``repro_torch.cluster`` controller, each running its own local backend
+(analytic or torch); entry points build it through ``cluster.LocalCluster``.
 
 All simulated times are seconds; ``CompletionReport.wall`` carries real
 elapsed wall-clock for backends that execute actual compute.
@@ -567,6 +569,99 @@ class ReplayBackend(ExecutionBackend):
         recorded = tuple(tr["stage_times"])
         return CompletionReport(t0, finishes, tr["energy"], recorded,
                                 measured_stage_times=recorded)
+
+
+# ---------------------------------------------------------------------------
+# multi-host execution: route handles to cluster workers
+# ---------------------------------------------------------------------------
+class _ClusterFuture(BackendFuture):
+    """Future for a batch executing on a remote worker. ``ready`` gates
+    the Engine's reap: False while the submission is unanswered and its
+    worker not yet declared lost — the failure detector (heartbeat
+    timeout, or an RPC fallback on the blocking path) decides its fate,
+    never a hang in the reap loop."""
+
+    def __init__(self, controller, sid: int, t0: float, finishes: tuple):
+        super().__init__(t0, finishes, lambda: controller.resolve(sid))
+        self._controller = controller
+        self._sid = sid
+
+    def ready(self) -> bool:
+        return self.done() or self._controller.ready(self._sid, self.finish)
+
+
+class ClusterBackend(ExecutionBackend):
+    """Executes every batch on a ``repro_torch.cluster`` worker peer.
+
+    ``prepare`` asks the controller to *place* the cell — pick an owning
+    worker (sub-pool-fit first, then deterministic round-robin) — and the
+    worker prepares its local backend's handle; the returned
+    ``PipelineHandle.payload`` is just ``(worker_id, remote_handle_id)``.
+    ``submit`` routes the batch to that worker and returns a future whose
+    simulated finishes come from the worker's report (the same schedule
+    model every backend uses, which is what makes cluster-vs-local
+    completion ordering identical). A worker death surfaces as
+    ``WorkerLost`` at resolution — see ``cluster/controller.py`` for the
+    detection story.
+
+    Not in ``BACKENDS``: it needs a live controller, so entry points build
+    it via ``cluster.LocalCluster`` rather than ``make_backend``."""
+    name = "cluster"
+
+    def __init__(self, controller):
+        self.controller = controller
+
+    @property
+    def measured_sim_clock(self) -> bool:
+        return self.controller.measured_sim_clock
+
+    def prepare(self, schedule, workload, *, epoch: int = 0) -> PipelineHandle:
+        # the controller may deploy a *host-adjusted* schedule (the owning
+        # worker's physics, possibly a different stage split) — the handle
+        # carries that one, so the Engine's busy clocks and straggler
+        # baselines see the same truth the worker will report against
+        wid, hid, deployed = self.controller.prepare(schedule, workload,
+                                                     epoch)
+        return PipelineHandle(deployed, workload, epoch=epoch,
+                              backend=self.name, payload=(wid, hid))
+
+    def submit(self, handle, batch, t0: float) -> BackendFuture:
+        wid, hid = handle.payload
+        sid, finishes = self.controller.submit(wid, hid, handle.schedule,
+                                               batch_size(batch), t0)
+        fut = _ClusterFuture(self.controller, sid, t0, finishes)
+        # the *executing* host — replica routing and stealing both
+        # already applied; the Engine advances that replica's clock
+        fut.worker = self.controller.worker_of(sid)
+        return fut
+
+    @property
+    def handles_migration(self) -> bool:
+        """True when a learned-profile publication is absorbed by live
+        migration (drain-to-replica -> retire) — the Router then skips
+        the engine-wide invalidation it would otherwise perform."""
+        return bool(getattr(self.controller, "migrate", False))
+
+    def cancel(self, future, now: float) -> bool:
+        """Preemption hook (``Engine.preempt``): withdraw an in-flight
+        submission from its worker before it reports. Refused (False)
+        once the report already arrived or the worker died — the caller
+        must then leave the batch alone and reap it normally."""
+        if future.done():
+            return False
+        return self.controller.cancel(future._sid, now)
+
+    def est_wait_bound(self, handle, now: float, est: float) -> float:
+        """Steal-aware admission bound (Engine.est_wait hook): the wait
+        behind this cell's busy owner collapses to zero when the
+        controller would migrate the next pending batch to a dry,
+        strictly-faster peer — judged on the *current* (declared or
+        learned) host profiles."""
+        wid, hid = handle.payload
+        return self.controller.steal_wait_bound(wid, hid, now, est)
+
+    def execute(self, handle, batch, t0: float) -> CompletionReport:
+        return self.submit(handle, batch, t0).result()
 
 
 BACKENDS = {

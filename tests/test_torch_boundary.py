@@ -58,7 +58,10 @@ def _entry_points():
     from repro_torch import resolve_device
     from repro_torch.data import table1_graph
     from repro_torch.kernels import BlockedEll, CsrOperand, ssd_chunked
+    from repro_torch.cluster import LocalCluster
     from repro_torch.configs import get_smoke
+    from repro_torch.core import paper_system
+    from repro_torch.launch import serve as serve_stream
     from repro_torch.launch import serve_prefill as prefill
     from repro_torch.launch.serve_pipeline import main, serve
     from repro_torch.launch.steps import make_prefill_step
@@ -107,6 +110,11 @@ def _entry_points():
                (2,))), chunk=64),
         "serve_prefill mamba2": lambda: prefill.serve_prefill(
             "mamba2-780m", shape="prefill_32k", smoke=True, prompt_len=256),
+        "LocalCluster torch": lambda: LocalCluster(
+            paper_system("pcie4"), 2, backend="torch"),
+        "serve --stream --cluster 2 --backend torch": lambda:
+            serve_stream.main(["--stream", "--duration", "5", "--day", "5",
+                               "--cluster", "2", "--backend", "torch"]),
         "serve_prefill.main mamba2": lambda: prefill.main(
             ["--arch", "mamba2-780m", "--shape", "prefill_32k", "--smoke",
              "--prompt-len", "256"]),

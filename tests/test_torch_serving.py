@@ -455,6 +455,6 @@ def test_cli_rejects_what_is_not_ported():
     with pytest.raises(SystemExit):
         serve_cli.main(["--duration", "1"])            # decode mode
     with pytest.raises(SystemExit):
-        serve_cli.main(STREAM_ARGS + ["--cluster", "2"])
+        serve_cli.main(STREAM_ARGS + ["--tenants", "gold:0"])  # tenancy
     with pytest.raises(SystemExit):
         serve_cli.main(STREAM_ARGS + ["--device", "cpu"])
