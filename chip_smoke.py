@@ -111,15 +111,39 @@ raises and the script exits non-zero:
    spawned process running the torch backend on the card: ping, prepare
    and a submit of 2, whose report's finishes equal the analytic ones and
    whose stage times are event-timed; it prints the spawn-to-report wall.
-   It prints a ``{"cluster": {...}}`` line.
+   It prints a ``{"cluster": {...}}`` line;
+13. drive DyPe's multi-tenant serving and observability on the card:
+   (a) phase 11's stream with two tenants (gold band 0 with a 2.5 s SLO,
+   bronze band 2 with 9x the share and a 15 s SLO: the TENANTS_SLO grid
+   of benchmarks/scenario_matrix.py), a span trace and the HTML
+   dashboard, on ``--backend torch`` in process and on the analytic
+   backend: equal completed, dropped, preemptions, preempted requests,
+   tenant rows and sorted latencies, no request lost, at least one
+   preemption, more than 0 ``spmm_csr_rows`` launches and none of the
+   other kernels, a trace that ``obs.schema.validate`` passes at chain
+   coverage 1.0, and every preempted batch's future dropped unread and
+   freed; (b) the documented tenancy command (docs/tenancy.md:136-138,
+   the Azure LLM excerpt, ``--tenants gold:0:1,bronze:2:3``), torch
+   against analytic, equal output but the wall lines (LLM signatures
+   only: its launch count is printed as it is); (c) the observability
+   quickstart (docs/observability.md:29-34) with two torch workers on the
+   card against its analytic twin: the event log byte-identical, the
+   trace valid at coverage 1.0, the dashboard frames equal but the
+   wall-clock placement times and the workers' measured occupancy; (d)
+   ``obs.DashboardServer`` on 127.0.0.1 with an ephemeral port: one
+   frame pushed, read back over HTTP and over server-sent events, then
+   closed. It prints a ``{"tenancy": {...}}`` line with the card's name
+   and power limit.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
+import gc
 import json
 import subprocess
+import weakref
 from unittest import mock
 import sys
 import time
@@ -173,6 +197,21 @@ CLUSTER_SCENARIOS = {
     "governor": ["--duration", "60", "--governor", "--forecast-horizon", "5",
                  "--power-cap-w", "700", "--energy-slo-j", "30"],
 }
+
+# phase 13: phase 11's stream with tenants (TENANTS_SLO of
+# benchmarks/scenario_matrix.py:52), the documented tenancy command
+# (docs/tenancy.md:136-138) and the observability quickstart
+# (docs/observability.md:29-34)
+TENANT_ARGV = STREAM_ARGV + ["--tenants", "gold:0:1:2.5,bronze:2:9:15"]
+AZURE_ARGV = ["--stream", "--trace-in",
+              str(Path(__file__).resolve().parent / "examples" / "traces"
+                  / "azure_llm_excerpt.jsonl"),
+              "--tenants", "gold:0:1,bronze:2:3"]
+OBS_ARGV = ["--stream", "--duration", "60", "--cluster", "2",
+            "--host-profiles", "w1=60", "--steal", "--peak-rate", "24",
+            "--dashboard", "--dashboard-every", "5"]
+# a dashboard frame's wall-clock fields (placement latency)
+FRAME_WALL = ("place_ms_p50", "place_ms_p99")
 
 
 def phase(name):
@@ -686,10 +725,13 @@ def lost_requests(router, snap):
             + len(router.queue) + len(router.engine.inflight))
 
 
-def cluster_scenario(name, extra, counters):
-    """Phase 12, one scenario: ``serve --stream --cluster 2`` on the torch
-    backend (the card) and on the analytic backend with the same argv,
-    held to each other; returns (its row, spmm_csr_rows launches)."""
+def cluster_scenario(name, extra, counters, base=CLUSTER_ARGV,
+                     per_backend=lambda backend: []):
+    """Phase 12 (and 13 c), one scenario: ``serve --stream --cluster 2``
+    (``base + extra``) on the torch backend (the card) and on the analytic
+    backend with the same argv (but ``per_backend(backend)``'s output
+    paths), held to each other; returns (its row, spmm_csr_rows
+    launches)."""
     import torch
     from repro_torch.kernels import spmm_csr_rows
     from repro_torch.runtime import TorchPipelineBackend
@@ -706,20 +748,22 @@ def cluster_scenario(name, extra, counters):
         reports.append(rep)
         return rep
 
-    argv = CLUSTER_ARGV + extra
+    argv = base + extra
     with mock.patch.object(TorchPipelineBackend, "execute",
                            recording_execute):
         spmm_csr_rows.launches = 0
         for f in counters:
             f.launches = 0
         router, snap, wall, summary = stream(
-            argv + ["--backend", "torch", "--record-cluster-events",
-                    str(logs["torch"])])
+            argv + per_backend("torch") + [
+                "--backend", "torch", "--record-cluster-events",
+                str(logs["torch"])])
         torch.cuda.synchronize()
         launches = spmm_csr_rows.launches
         others = {f.__name__: f.launches for f in counters if f.launches}
     a_router, a_snap, a_wall, a_summary = stream(
-        argv + ["--record-cluster-events", str(logs["analytic"])])
+        argv + per_backend("analytic") + ["--record-cluster-events",
+                                          str(logs["analytic"])])
     ctrl = router.engine.backend.controller
     devices = {wid: (link.peer.core.backend.name,
                      str(link.peer.core.backend.device))
@@ -870,6 +914,262 @@ def remote_torch_worker():
         raise AssertionError(f"remote worker exited {proc.exitcode}")
     print("[check] remote torch worker: finishes equal the analytic "
           "backend's; stage times event-timed; exit 0", flush=True)
+    return row
+
+
+def mask_frame(frame):
+    """A dashboard frame without its wall-clock fields and each worker's
+    occupancy, which on torch workers reads card seconds (the heartbeats'
+    measured ``stage_s``)."""
+    out = {k: v for k, v in frame.items() if k not in FRAME_WALL}
+    out["workers"] = [{k: v for k, v in w.items() if k != "busy_frac"}
+                      for w in frame["workers"]]
+    return out
+
+
+def html_frames(path):
+    """The frames a ``--dashboard-html`` page embeds."""
+    html = Path(path).read_text()
+    return json.loads(html.split("const FRAMES = ", 1)[1].split(";\n", 1)[0])
+
+
+def validated(path):
+    """``obs.schema.validate`` of a span JSONL; raises on any error or on
+    chain coverage below 1.0. Returns (spans, coverage)."""
+    from repro_torch.obs import read_jsonl, validate
+    errors, stats = validate(read_jsonl(path))
+    if errors or stats["coverage"] != 1.0:
+        raise AssertionError(f"{path}: {len(errors)} schema errors "
+                             f"{errors[:3]}, coverage {stats['coverage']}")
+    return stats["spans"], stats["coverage"]
+
+
+def summary_minus_wall(lines, out_dir=None):
+    """Summary lines but those holding "wall" or (with ``out_dir``) an
+    output path, with the backend's name blanked."""
+    return [l.replace("backend=torch ", "backend=analytic ") for l in lines
+            if "wall" not in l
+            and (out_dir is None or str(out_dir) not in l)]
+
+
+def tenant_stream(counters):
+    """Phase 13 (a): phase 11's stream with two tenants on the card and on
+    the analytic backend; returns (its row, spmm_csr_rows launches)."""
+    import torch
+    from repro_torch.kernels import spmm_csr_rows
+    from repro_torch.runtime import TorchPipelineBackend
+
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    files = {b: (out / f"tenant_{b}.jsonl", out / f"tenant_{b}.html")
+             for b in ("torch", "analytic")}
+    futures = []
+    real_submit = TorchPipelineBackend.submit
+
+    def recording_submit(self, handle, batch, t0):
+        fut = real_submit(self, handle, batch, t0)
+        futures.append(fut)
+        return fut
+
+    def argv(backend):
+        spans, html = files[backend]
+        return TENANT_ARGV + ["--backend", backend, "--trace-out",
+                              str(spans), "--dashboard-html", str(html)]
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    with mock.patch.object(TorchPipelineBackend, "submit",
+                           recording_submit):
+        spmm_csr_rows.launches = 0
+        for f in counters:
+            f.launches = 0
+        router, snap, wall, summary = stream(argv("torch"))
+        torch.cuda.synchronize()
+        launches = spmm_csr_rows.launches
+        others = {f.__name__: f.launches for f in counters if f.launches}
+    print("\n".join(summary), flush=True)
+    backend = router.engine.backend
+    resolved = [f.done() for f in futures]
+    reports = [f.result() for f in futures if f.done()]
+    refs = [weakref.ref(f) for f, done in zip(futures, resolved)
+            if not done]
+    futures.clear()
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    batch_ms = sorted(sum(r.measured_stage_times) * 1e3 for r in reports)
+    a_router, a_snap, a_wall, a_summary = stream(argv("analytic"))
+    spans, coverage = validated(files["torch"][0])
+    row = {"wall_s": wall, "analytic_wall_s": a_wall,
+           "completed": snap.completed, "dropped": snap.dropped,
+           "preemptions": snap.preemptions,
+           "preempted_requests": snap.preempted_requests,
+           "tenants": snap.tenants, "batches": len(router.dispatches),
+           "host_ms_per_batch": wall * 1e3 / len(router.dispatches),
+           "device_ms_per_batch_mean": sum(batch_ms) / len(batch_ms),
+           "device_ms_per_batch_p50": batch_ms[(len(batch_ms) - 1) // 2],
+           "spmm_csr_rows_launches": launches,
+           "preempted_futures_unread": len(refs),
+           "preempted_futures_alive": sum(r() is not None for r in refs),
+           "device_bytes_kept": mem1 - mem0, "spans": spans,
+           "coverage": coverage,
+           "frames": len(html_frames(files["torch"][1])),
+           "lost": lost_requests(router, snap)}
+    print(f"[tenancy a] torch: {snap.completed} completed, {snap.dropped} "
+          f"dropped, {snap.preemptions} preemptions "
+          f"({snap.preempted_requests} requests) in {wall:.3f} s wall "
+          f"({row['host_ms_per_batch']:.4f} host ms a batch); "
+          f"{row['batches']} batches, device ms a batch (events) mean "
+          f"{row['device_ms_per_batch_mean']:.4f}, p50 "
+          f"{row['device_ms_per_batch_p50']:.4f}; spmm_csr_rows launches "
+          f"{launches}; other kernels {others or 'none'}; {len(refs)} "
+          f"preempted futures unread, {row['preempted_futures_alive']} "
+          f"alive after the run; {mem1 - mem0} device bytes kept; "
+          f"{spans} spans, coverage {coverage}; {row['frames']} frames",
+          flush=True)
+    if backend.name != "torch" or backend.device.type != "cuda":
+        raise AssertionError(f"the tenanted stream ran on {backend.name} "
+                             f"{getattr(backend, 'device', None)}")
+    if launches <= 0 or others:
+        raise AssertionError(f"expected spmm_csr_rows launches and no "
+                             f"other kernel's, saw {launches} and {others}")
+    if not all(len(r.measured_stage_times) and all(
+            t > 0 for t in r.measured_stage_times) for r in reports):
+        raise AssertionError("a tenanted batch has no event timing")
+    if snap.preemptions < 1:
+        raise AssertionError("the tenanted stream preempted nothing")
+    if len(refs) != snap.preemptions or row["preempted_futures_alive"]:
+        raise AssertionError(f"{len(refs)} unread futures for "
+                             f"{snap.preemptions} preemptions, "
+                             f"{row['preempted_futures_alive']} alive")
+    if row["lost"] or lost_requests(a_router, a_snap):
+        raise AssertionError(f"tenanted stream: requests lost: torch "
+                             f"{row['lost']}, analytic "
+                             f"{lost_requests(a_router, a_snap)}")
+    same = {"completed": (snap.completed, a_snap.completed),
+            "dropped": (snap.dropped, a_snap.dropped),
+            "preemptions": (snap.preemptions, a_snap.preemptions),
+            "preempted_requests": (snap.preempted_requests,
+                                   a_snap.preempted_requests),
+            "tenants": (snap.tenants, a_snap.tenants),
+            "latencies": (sorted(router.metrics.latencies),
+                          sorted(a_router.metrics.latencies)),
+            "summary": (summary_minus_wall(summary, out),
+                        summary_minus_wall(a_summary, out)),
+            "log": (router.log + router.engine.log,
+                    a_router.log + a_router.engine.log)}
+    differ = [k for k, (a, b) in same.items() if a != b]
+    if differ:
+        raise AssertionError(f"tenanted stream: torch vs analytic differ "
+                             f"in {differ}")
+    print(f"[check] tenanted stream: torch vs analytic {', '.join(same)} "
+          f"equal; no request lost; trace valid at coverage {coverage}",
+          flush=True)
+    return row, launches
+
+
+def azure_tenancy(counters):
+    """Phase 13 (b): the documented tenancy command on the card and on the
+    analytic backend; returns its row (launches printed as they are)."""
+    import torch
+    from repro_torch.kernels import spmm_csr_rows
+
+    spmm_csr_rows.launches = 0
+    for f in counters:
+        f.launches = 0
+    router, snap, wall, summary = stream(AZURE_ARGV + ["--backend",
+                                                       "torch"])
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in (spmm_csr_rows,) + counters}
+    a_router, a_snap, a_wall, a_summary = stream(AZURE_ARGV)
+    print("\n".join(summary), flush=True)
+    backend = router.engine.backend
+    row = {"wall_s": wall, "analytic_wall_s": a_wall,
+           "completed": snap.completed, "dropped": snap.dropped,
+           "preemptions": snap.preemptions, "tenants": snap.tenants,
+           "batches": len(router.dispatches),
+           "host_ms_per_batch": wall * 1e3 / len(router.dispatches),
+           "launches": launches, "lost": lost_requests(router, snap)}
+    print(f"[tenancy b] torch: {snap.completed} completed, {snap.dropped} "
+          f"dropped, {snap.preemptions} preemptions in {wall:.3f} s wall "
+          f"({row['host_ms_per_batch']:.4f} host ms a batch), "
+          f"{row['batches']} batches; launches {launches}", flush=True)
+    if backend.name != "torch" or backend.device.type != "cuda":
+        raise AssertionError(f"the Azure stream ran on {backend.name}")
+    if row["lost"] or lost_requests(a_router, a_snap):
+        raise AssertionError("the Azure stream lost requests")
+    differ = [k for k, (a, b) in {
+        "summary": (summary_minus_wall(summary),
+                    summary_minus_wall(a_summary)),
+        "log": (router.log + router.engine.log,
+                a_router.log + a_router.engine.log),
+        "latencies": (sorted(router.metrics.latencies),
+                      sorted(a_router.metrics.latencies))}.items() if a != b]
+    if differ or not any(l.startswith("[serve] tenant gold:")
+                         for l in summary):
+        raise AssertionError(f"the Azure stream: torch vs analytic differ "
+                             f"in {differ}")
+    print("[check] Azure tenancy command: torch vs analytic summary, logs "
+          "and latencies equal", flush=True)
+    return row
+
+
+def obs_quickstart(counters):
+    """Phase 13 (c): the observability quickstart with two torch workers
+    on the card against its analytic twin (``cluster_scenario``); returns
+    (its row, spmm_csr_rows launches, the torch run's last frame)."""
+    out = Path(__file__).resolve().parent / "build"
+    files = {b: (out / f"obs_{b}.jsonl", out / f"obs_{b}.html")
+             for b in ("torch", "analytic")}
+
+    def per_backend(backend):
+        spans, html = files[backend]
+        return ["--trace-out", str(spans), "--dashboard-html", str(html)]
+    row, launches = cluster_scenario("obs", [], counters, base=OBS_ARGV,
+                                     per_backend=per_backend)
+    spans, coverage = validated(files["torch"][0])
+    frames = {b: html_frames(files[b][1]) for b in files}
+    if list(map(mask_frame, frames["torch"])) != \
+            list(map(mask_frame, frames["analytic"])):
+        raise AssertionError("quickstart: the torch run's dashboard frames "
+                             "differ from the analytic run's")
+    row.update(spans=spans, coverage=coverage, frames=len(frames["torch"]),
+               busy_frac_torch=[w["busy_frac"]
+                                for w in frames["torch"][-1]["workers"]],
+               busy_frac_analytic=[
+                   w["busy_frac"] for w in frames["analytic"][-1]["workers"]])
+    print(f"[check] quickstart: {spans} spans, coverage {coverage}; "
+          f"{len(frames['torch'])} frames equal but "
+          f"{', '.join(FRAME_WALL)} and busy_frac (last frame: torch "
+          f"{row['busy_frac_torch']}, analytic "
+          f"{row['busy_frac_analytic']})", flush=True)
+    return row, launches, frames["torch"][-1]
+
+
+def dashboard_server(frame):
+    """Phase 13 (d): ``DashboardServer(port=0)`` on 127.0.0.1: push one
+    frame, read it back over HTTP and server-sent events, close."""
+    import urllib.request
+    from repro_torch.obs import DashboardServer, dashboard_html
+
+    t0 = time.perf_counter()
+    server = DashboardServer(port=0)
+    try:
+        server.push(frame)
+        with urllib.request.urlopen(server.url, timeout=30) as resp:
+            page = resp.read().decode()
+        with urllib.request.urlopen(server.url + "events",
+                                    timeout=30) as resp:
+            event = resp.readline().decode()
+    finally:
+        server.close()
+    if page != dashboard_html([frame]) or not event.startswith("data: ") \
+            or json.loads(event[len("data: "):]) != frame:
+        raise AssertionError("DashboardServer did not serve the pushed "
+                             "frame")
+    row = {"url": server.url, "page_bytes": len(page),
+           "round_trip_s": time.perf_counter() - t0}
+    print(f"[check] DashboardServer at {server.url}: the page "
+          f"({len(page)} bytes) and the first server-sent event hold the "
+          f"pushed frame; closed", flush=True)
     return row
 
 
@@ -1482,12 +1782,32 @@ def main():
     cluster_row["remote_worker"] = remote_torch_worker()
     print(json.dumps({"cluster": cluster_row}), flush=True)
 
+    # 13) multi-tenant serving and observability on the card
+    phase("13. main path: multi-tenant serving and observability, serve "
+          "--stream --tenants / --trace-out / --dashboard* on the card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    tenancy_row = {"card": card}
+    tenancy_row["tenant_stream"], tenancy_launches = tenant_stream(counters)
+    tenancy_row["azure"] = azure_tenancy(counters)
+    tenancy_row["quickstart"], obs_launches, last_frame = \
+        obs_quickstart(counters)
+    tenancy_row["dashboard_server"] = dashboard_server(last_frame)
+    tenancy_row["spmm_csr_rows_launches"] = {
+        "tenant_stream": tenancy_launches,
+        "azure": tenancy_row["azure"]["launches"]["spmm_csr_rows"],
+        "quickstart": obs_launches}
+    print(json.dumps({"tenancy": tenancy_row}), flush=True)
+
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_csr_rows.cu",
         "replaces": "src/repro/kernels/spmm.py:72", "launches": launches,
         "stream_launches": stream_launches,
         "cluster_launches": cluster_launches,
+        "tenancy_launches": tenancy_launches + obs_launches,
         "max_abs_err": max(r["max_abs_err"] for r in csr_rows),
         "ms": oa_csr["ms"], "plain_ms": oa_csr["plain_ms"],
         "bound_ms": oa_csr["bound_ms"], "bound_by": oa_csr["bound_by"],
@@ -1543,10 +1863,7 @@ def main():
         "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
         "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

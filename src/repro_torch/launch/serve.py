@@ -9,13 +9,15 @@ serving path; see src/repro_torch/serving/):
       [--backend analytic|torch] [--device cpu] [--max-cells 2] [--sync] \\
       [--calibrate-wall N] [--probation N] \\
       [--record-trace t.jsonl | --replay-trace t.jsonl | --trace-in c.jsonl] \\
+      [--tenants gold:0:1:2.5,bronze:2:3 [--no-preempt] [--starve-after S]] \\
       [--cluster N [--kill-worker T]] \\
       [--host-profiles w1=4 | w1=4:0.5,w2=2] [--steal] [--host-oblivious] \\
       [--true-host-profiles w1=60 --learn-profiles] [--autoscale] \\
       [--forecast-horizon S] [--replicate-hot N] [--migrate] \\
       [--governor [--power-cap-w W] [--energy-slo-j J]] \\
       [--record-cluster-events e.jsonl | --replay-cluster-events e.jsonl] \\
-      [--trace-out spans.jsonl] [--snapshot-every S]
+      [--trace-out spans.jsonl] [--dashboard] [--dashboard-every S] \\
+      [--dashboard-html d.html] [--dashboard-port P] [--snapshot-every S]
 
 ``--backend torch`` runs every batch through ``TorchPipelineBackend``:
 the schedule's stages as proxy stage functions on the card, the spmm
@@ -28,9 +30,30 @@ submit``; completions reaped in timestamp order with deferred reaping
 across cycles, measured stage times fed to the straggler monitors);
 ``--sync`` restores blocking per-batch dispatch for comparison.
 
-``--trace-out`` streams one span record per line — every request's
-causal chain (arrival -> admit -> solve -> submit -> reap). Tracing is
-derived output only.
+Observability (repro_torch.obs): ``--trace-out`` streams one span
+record per line — every request's causal chain (arrival -> admit ->
+solve -> submit -> [steal/requeue] -> reap) plus the control-plane story
+(heartbeats, deploys, worker loss) — which ``obs.schema.validate``
+checks. ``--dashboard`` renders a terminal frame every
+``--dashboard-every`` sim seconds (per-worker occupancy, stragglers,
+probation, mode, p50/p99); ``--dashboard-html`` writes a single-file
+HTML replay of those frames, and ``--dashboard-port`` serves them live
+over SSE until interrupted. Tracing is derived-output only: a traced
+cluster run replays its event log byte-identically. On the torch backend
+a worker's occupancy in a frame is read from its measured stage seconds,
+which are real seconds on the device.
+
+Multi-tenant serving (repro_torch.tenancy): ``--tenants`` declares
+priority classes as ``name:priority[:share[:slo[:jcap]]]`` entries —
+strict priority bands with weighted fair queueing inside each band,
+tenant-pure batches, priority admission (a full queue displaces the
+youngest lower-class request), and preemption: when a higher-priority
+group is ready but blocked only by occupied capacity, the lowest-class
+in-flight batch is drained and requeued (never dropped). ``--no-preempt``
+keeps the bands ordering-only; ``--starve-after S`` bounds the lowest
+class's wait (aged groups are promoted for dispatch ordering). A batch
+preempted on the local torch backend was already enqueued on the device:
+that work runs to its end and its report is never read.
 
 ``--trace-in`` replays a *converted real trace* whose compact rows
 resolve workloads by catalog name — e.g.
@@ -94,9 +117,14 @@ backend's name):
     --cluster 2 --autoscale --forecast-horizon 5 --mode-cooldown 5
     --duration 60 --cluster 2 --governor --forecast-horizon 5 \\
         --power-cap-w 700 --energy-slo-j 30
+    --duration 60 --cluster 2 --host-profiles w1=60 --steal \\
+        --peak-rate 24 --trace-out s.jsonl --dashboard \\
+        --dashboard-every 5 --dashboard-html d.html
+  and for tenancy:
+  --stream --trace-in examples/traces/azure_llm_excerpt.jsonl \\
+      --tenants gold:0:1,bronze:2:3 --backend torch --device cpu
 
-Not ported yet: the decode mode (``--arch``), tenancy (``--tenants``) and
-the dashboard (``--dashboard*``) of the reference's launcher.
+Not ported yet: the decode mode (``--arch``) of the reference's launcher.
 """
 from __future__ import annotations
 
@@ -138,7 +166,8 @@ def run_stream(args):
     """Serve a simulated traffic stream through the serving subsystem;
     returns ``(router, sim, snapshot, wall seconds)``."""
     from ..core import DynamicScheduler, PerfModel, paper_system
-    from ..obs import JsonlTraceSink, Tracer
+    from ..obs import (DashboardServer, FleetView, JsonlTraceSink, Tracer,
+                       build_frame, dashboard_html, render_frame)
     from ..runtime import ProbationTracker, WallClockCalibrator, make_backend
     from ..serving import (LoadWatermarkPolicy, PoolEvent, Router,
                            SignatureBatcher, TrafficSim)
@@ -207,12 +236,33 @@ def run_stream(args):
                   if args.power_cap_w is not None else None)
         governor = ParetoGovernor(budget=budget,
                                   energy_slo_j=args.energy_slo_j)
-    # observability: one Tracer fans spans out to the JSONL file;
-    # None = NULL_TRACER (publish sites cost one attribute check)
-    tracer = Tracer(JsonlTraceSink(args.trace_out)) if args.trace_out \
-        else None
-    batcher = SignatureBatcher(max_batch=args.max_batch,
-                               max_wait=args.max_wait)
+    # observability: one Tracer fans spans out to the JSONL file and/or
+    # the in-memory FleetView the dashboard reads; None = NULL_TRACER
+    # (publish sites cost one attribute check)
+    sinks = []
+    fleet = None
+    want_dash = bool(args.dashboard or args.dashboard_html
+                     or args.dashboard_port is not None)
+    if args.trace_out:
+        sinks.append(JsonlTraceSink(args.trace_out))
+    if want_dash:
+        fleet = FleetView()
+        sinks.append(fleet)
+    tracer = Tracer(*sinks) if sinks else None
+    # multi-tenant serving (repro_torch.tenancy): priority bands + WFQ +
+    # preemption; untenanted runs keep the plain signature batcher
+    tenant_manager = None
+    tenant_specs = ()
+    if args.tenants:
+        from ..tenancy import build_tenancy, parse_tenants
+        tenant_specs = parse_tenants(args.tenants)
+        tenant_manager, batcher = build_tenancy(
+            tenant_specs, preempt=not args.no_preempt,
+            starve_after=args.starve_after,
+            max_batch=args.max_batch, max_wait=args.max_wait)
+    else:
+        batcher = SignatureBatcher(max_batch=args.max_batch,
+                                   max_wait=args.max_wait)
     router = Router(
         dyn,
         batcher=batcher,
@@ -229,7 +279,8 @@ def run_stream(args):
         calibrator=(WallClockCalibrator(warmup=args.calibrate_wall,
                                         estimator=estimator)
                     if args.calibrate_wall else None),
-        tracer=tracer)
+        tracer=tracer,
+        tenancy=tenant_manager)
     if cluster is not None:
         cluster.attach(router)
         if estimator is not None:
@@ -239,6 +290,26 @@ def run_stream(args):
     if governor is not None:
         governor.attach(router,
                         cluster.controller if cluster is not None else None)
+    frames: list = []
+    server = None
+    if want_dash:
+        if args.dashboard_port is not None:
+            server = DashboardServer(port=args.dashboard_port)
+            print(f"[serve] dashboard live at {server.url}")
+        last_frame = [-args.dashboard_every]
+
+        def dash_hook(now):
+            if now - last_frame[0] >= args.dashboard_every:
+                last_frame[0] = now
+                frame = build_frame(now, router, fleet)
+                frames.append(frame)
+                if args.dashboard:
+                    print(render_frame(frame))
+                if server is not None:
+                    server.push(frame)
+            return None
+
+        router.clock_hooks.append(dash_hook)
     events = []
     if args.fail_at is not None:
         events.append(PoolEvent(args.fail_at, "fail", args.fail_dev,
@@ -258,7 +329,8 @@ def run_stream(args):
                          peak_rate=args.peak_rate,
                          trough_rate=args.trough_rate,
                          day=args.day, events=tuple(events),
-                         snapshot_every=snap_every)
+                         snapshot_every=snap_every,
+                         tenants=tenant_specs)
     t0 = time.time()
     snap = sim.run(router)
     wall = time.time() - t0
@@ -294,6 +366,16 @@ def run_stream(args):
     if snap.steals:
         print(f"[serve] steals={snap.steals} batches migrated to dry "
               f"workers (recorded in the event log)")
+    if snap.preemptions:
+        print(f"[serve] preemptions={snap.preemptions} in-flight batches "
+              f"drained and requeued ({snap.preempted_requests} requests, "
+              f"zero dropped by preemption)")
+    for name, row in snap.tenants.items():
+        print(f"[serve] tenant {name}: completed={row['completed']} "
+              f"dropped={row['dropped']} preempted={row['preempted']} "
+              f"p99={row['p99_latency']*1e3:.1f}ms "
+              f"miss={row['deadline_miss_rate']:.1%} "
+              f"J/req={row['joules_per_req']:.2f}")
     if cluster is not None:
         print(f"[serve] cluster: {len(cluster.controller.links)} workers, "
               f"cross-worker overlap="
@@ -359,9 +441,31 @@ def run_stream(args):
     if sim.snapshots:
         print(f"[serve] {len(sim.snapshots)} metric snapshots "
               f"(every {args.snapshot_every:.0f}s)")
+    if want_dash:
+        final = build_frame(router.metrics.t_last, router, fleet)
+        frames.append(final)
+        if args.dashboard:
+            print(render_frame(final))
+        if server is not None:
+            server.push(final)
     if tracer is not None:
         tracer.flush(router.metrics.t_last)
-        print(f"[serve] trace spans -> {args.trace_out}")
+        if args.trace_out:
+            print(f"[serve] trace spans -> {args.trace_out}")
+    if args.dashboard_html:
+        with open(args.dashboard_html, "w") as f:
+            f.write(dashboard_html(frames))
+        print(f"[serve] dashboard html -> {args.dashboard_html}")
+    if server is not None:
+        print(f"[serve] holding dashboard at {server.url} "
+              f"(ctrl-c to exit)")
+        try:
+            while True:
+                time.sleep(1.0)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.close()
     return router, sim, snap, wall
 
 
@@ -405,6 +509,23 @@ def parser() -> argparse.ArgumentParser:
                     help="serve a converted real trace (compact rows, "
                          "workloads resolved by catalog name — e.g. "
                          "examples/traces/azure_llm_excerpt.jsonl)")
+    ap.add_argument("--tenants", metavar="SPEC",
+                    help="multi-tenant priority classes as "
+                         "name:priority[:share[:slo[:jcap]]] entries, "
+                         "e.g. 'gold:0:1:2.5,bronze:2:3' (priority 0 = "
+                         "highest; share = WFQ weight and arrival share; "
+                         "slo = per-request deadline slack in s; jcap = "
+                         "J/request accounting ceiling) — docs/tenancy.md")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="keep priority bands ordering-only: never drain "
+                         "a lower-class in-flight batch for blocked "
+                         "higher-priority work (requires --tenants)")
+    ap.add_argument("--starve-after", type=float, default=4.0,
+                    metavar="S",
+                    help="starvation bound: promote a tenant group to "
+                         "top-band dispatch ordering once its head has "
+                         "waited S seconds (default 4; ordering only — "
+                         "promoted groups gain no preemption rights)")
     ap.add_argument("--cluster", type=int, default=0, metavar="N",
                     help="serve through the multi-host control plane with "
                          "N in-process workers splitting the device pool")
@@ -490,7 +611,21 @@ def parser() -> argparse.ArgumentParser:
                     help="replay the input events (kill/join/latency) of "
                          "a recorded cluster event log")
     ap.add_argument("--trace-out", metavar="JSONL",
-                    help="stream request spans to this JSONL file")
+                    help="stream request/control-plane spans to this "
+                         "JSONL file (validate: obs.schema.validate)")
+    ap.add_argument("--dashboard", action="store_true",
+                    help="render a live terminal dashboard frame every "
+                         "--dashboard-every sim seconds")
+    ap.add_argument("--dashboard-every", type=float, default=5.0,
+                    metavar="S", help="dashboard frame cadence in "
+                                      "simulated seconds (default 5)")
+    ap.add_argument("--dashboard-html", metavar="HTML",
+                    help="write a single-file HTML dashboard replaying "
+                         "every frame of this run")
+    ap.add_argument("--dashboard-port", type=int, metavar="P",
+                    help="serve the dashboard live over SSE on this port "
+                         "(0 = ephemeral); holds the process after the "
+                         "run until ctrl-c")
     ap.add_argument("--snapshot-every", type=float, default=0.0,
                     metavar="S",
                     help="append a cumulative MetricsSnapshot every S sim "
@@ -505,9 +640,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if not args.stream:
         ap.error("only --stream is ported; the decode mode is not yet")
+    if args.no_preempt and not args.tenants:
+        ap.error("--no-preempt requires --tenants")
     if args.replay_trace and args.trace_in:
         ap.error("--replay-trace and --trace-in are mutually exclusive "
                  "(both replay an arrival JSONL)")
+    if args.tenants:
+        try:
+            from ..tenancy import parse_tenants
+            parse_tenants(args.tenants)
+        except ValueError as e:
+            ap.error(str(e))
     if args.device is not None and args.backend != "torch":
         ap.error("--device applies to --backend torch only")
     if (args.kill_worker is not None or args.record_cluster_events

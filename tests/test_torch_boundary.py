@@ -115,6 +115,14 @@ def _entry_points():
         "serve --stream --cluster 2 --backend torch": lambda:
             serve_stream.main(["--stream", "--duration", "5", "--day", "5",
                                "--cluster", "2", "--backend", "torch"]),
+        "serve --stream --tenants --backend torch": lambda:
+            serve_stream.main(["--stream", "--duration", "5", "--day", "5",
+                               "--tenants", "gold:0:1:2.5,bronze:2:9:15",
+                               "--backend", "torch"]),
+        "serve --stream --cluster 2 --dashboard --backend torch": lambda:
+            serve_stream.main(["--stream", "--duration", "5", "--day", "5",
+                               "--cluster", "2", "--dashboard",
+                               "--backend", "torch"]),
         "serve_prefill.main mamba2": lambda: prefill.main(
             ["--arch", "mamba2-780m", "--shape", "prefill_32k", "--smoke",
              "--prompt-len", "256"]),

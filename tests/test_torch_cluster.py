@@ -40,7 +40,7 @@ def pkg(root: str):
     serving + cluster stack is built from, and one fitted PerfModel."""
     mods = {n: importlib.import_module(f"{root}.{n}")
             for n in ("core", "cluster", "fleet", "energy", "serving",
-                      "runtime")}
+                      "runtime", "tenancy", "obs")}
     mods["perf"] = mods["core"].PerfModel()
     return type(root, (), mods)
 
@@ -56,6 +56,8 @@ def mixes(p):
         "energy": (MixItem("llm-swa-4k", "llm", 0.75,
                            core.swa_transformer_workload(4096, 256)),
                    MixItem("gcn-arxiv", "gnn", 0.25, oa)),
+        "swa": (MixItem("llm-swa-4k", "llm", 1.0,
+                        core.swa_transformer_workload(4096, 256)),),
     }
 
 
@@ -71,13 +73,21 @@ class Run:
 
 def run(root: str, sc: Scenario, *, script=None, backend="analytic",
         backend_kw=None, calibrate: int = 0) -> Run:
-    """``replay_harness.run_scenario`` on either package (no tenancy: the
-    port has none yet). ``script`` overrides ``sc.script``; ``backend``
-    and ``backend_kw`` name each worker's local backend."""
-    assert not sc.tenants and not sc.kill_groups
+    """``replay_harness.run_scenario`` on either package, tenancy and
+    rack-scoped kill groups included. ``script`` overrides ``sc.script``
+    (a recorded script already holds the kill groups' events);
+    ``backend`` and ``backend_kw`` name each worker's local backend."""
     p = pkg(root)
     cl, fl, en, sv, rt = p.cluster, p.fleet, p.energy, p.serving, p.runtime
-    script = tuple(sc.script if script is None else script)
+    if script is None:
+        # the record run expands each kill group into simultaneous kills,
+        # in replay_harness.run_scenario's order
+        script = tuple(sorted(
+            tuple(sc.script) + tuple(
+                cl.ClusterEvent(t, "kill", w)
+                for t, wids in sc.kill_groups for w in wids),
+            key=lambda e: e.t))
+    script = tuple(script)
     # the scenario's events are the reference's dataclass; rebuild them
     script = tuple(cl.ClusterEvent(e.t, e.kind, e.worker, dict(e.detail))
                    for e in script)
@@ -93,14 +103,23 @@ def run(root: str, sc: Scenario, *, script=None, backend="analytic",
                or sc.governor)
     fc = fl.ArrivalForecaster() if need_fc else None
     est = fl.OnlineHostEstimator() if sc.learn else None
+    specs = p.tenancy.parse_tenants(sc.tenants) if sc.tenants else ()
+    if specs:
+        manager, batcher = p.tenancy.build_tenancy(
+            specs, preempt=sc.preempt, starve_after=sc.starve_after,
+            max_batch=16, max_wait=sc.max_wait)
+    else:
+        manager = None
+        batcher = sv.SignatureBatcher(max_batch=16, max_wait=sc.max_wait)
     router = sv.Router(
         p.core.DynamicScheduler(system, p.perf, mode="perf"),
-        batcher=sv.SignatureBatcher(max_batch=16, max_wait=sc.max_wait),
+        batcher=batcher,
         policy=sv.LoadWatermarkPolicy(window=sc.policy_window,
                                       forecaster=fc, cooldown=sc.cooldown),
         backend=cluster.backend(), async_mode=sc.async_mode,
         calibrator=(rt.WallClockCalibrator(warmup=calibrate, estimator=est)
-                    if calibrate else None))
+                    if calibrate else None),
+        tenancy=manager)
     cluster.attach(router)
     scaler = gov = None
     if est is not None:
@@ -114,10 +133,11 @@ def run(root: str, sc: Scenario, *, script=None, backend="analytic",
         gov = en.ParetoGovernor(budget=budget, energy_slo_j=sc.energy_slo)
         gov.attach(router, cluster.controller)
     mix = (mixes(p)["hot"] if sc.use_hot_mix else
-           mixes(p)["energy"] if sc.use_energy_mix else None)
+           mixes(p)["energy"] if sc.use_energy_mix else
+           mixes(p)["swa"] if sc.use_swa_mix else None)
     sim = sv.TrafficSim(seed=sc.seed, duration=sc.duration, day=sc.duration,
                         peak_rate=sc.peak, trough_rate=sc.trough, mix=mix,
-                        deadline_slack=sc.deadline_slack,
+                        deadline_slack=sc.deadline_slack, tenants=specs,
                         bursts=tuple(sv.Burst(*b) for b in sc.bursts))
     snap = sim.run(router)
     return Run(cluster, router, snap, est, scaler, gov)
@@ -138,11 +158,20 @@ def snap_fields(r: Run, *, measured: bool = True) -> dict:
     return d
 
 
-def assert_no_lost_requests(r: Run) -> None:
+def assert_no_lost_requests(r: Run, *, dropped_ok: bool = False) -> None:
+    """Every admitted request completed or dropped, nothing left queued or
+    in flight; with ``dropped_ok`` False (no deadlines, no tenant
+    admission control) nothing dropped either."""
     q = r.router.queue
     assert q.stats.admitted == r.snap.completed + r.snap.dropped
-    assert r.snap.dropped == 0
+    if not dropped_ok:
+        assert r.snap.dropped == 0
     assert len(q) == 0 and r.router.engine.inflight == []
+
+
+def may_drop(sc: Scenario) -> bool:
+    """Deadlines or tenant admission control may drop requests."""
+    return bool(sc.tenants) or sc.deadline_slack is not None
 
 
 def assert_same_as_reference(sc: Scenario, tmp_path, **kw) -> tuple:
@@ -151,8 +180,8 @@ def assert_same_as_reference(sc: Scenario, tmp_path, **kw) -> tuple:
     fields and sorted latencies, zero lost requests on both."""
     ref = run("repro", sc)
     port = run("repro_torch", sc, **kw)
-    assert_no_lost_requests(ref)
-    assert_no_lost_requests(port)
+    assert_no_lost_requests(ref, dropped_ok=may_drop(sc))
+    assert_no_lost_requests(port, dropped_ok=may_drop(sc))
     assert log_bytes(port, tmp_path / "port.jsonl") == \
         log_bytes(ref, tmp_path / "ref.jsonl")
     measured = kw.get("backend", "analytic") == "analytic"
@@ -172,7 +201,7 @@ def replay(sc: Scenario, r: Run, tmp_path, **kw) -> Run:
     script = cl.ClusterEventLog.from_jsonl(path).script()
     assert all(e.kind in cl.INPUT_KINDS for e in script)
     again = run("repro_torch", sc, script=script, **kw)
-    assert_no_lost_requests(again)
+    assert_no_lost_requests(again, dropped_ok=may_drop(sc))
     assert log_bytes(again, tmp_path / "replay.jsonl") == recorded
     measured = kw.get("backend", "analytic") == "analytic"
     assert snap_fields(again, measured=measured) == \
@@ -404,6 +433,24 @@ def test_replication_and_migration_match_reference(migrate, tmp_path):
     assert "replicate" in kinds
     if migrate:
         assert "learned-profile" in kinds
+
+
+@pytest.mark.parametrize("backend", ["analytic", "torch"])
+def test_rack_kill_under_tenancy_matches_reference_and_replays(backend,
+                                                               tmp_path):
+    """The correlated-failure cell of benchmarks/scenario_matrix.py: two of
+    three workers die at once under tenanted traffic; the kill group
+    expands to simultaneous kill events in both packages, and the port's
+    recorded log replays byte for byte."""
+    kw = TORCH_CPU if backend == "torch" else {}
+    sc = Scenario(tenants="gold:0:1,bronze:2:3", duration=8.0, peak=24.0,
+                  trough=16.0, use_energy_mix=True, n_workers=3,
+                  kill_groups=((4.0, ("w1", "w2")),))
+    _, port = assert_same_as_reference(sc, tmp_path, **kw)
+    kinds = port.cluster.events.kinds()
+    assert kinds.count("kill") == 2 and "failure" in kinds
+    assert set(port.snap.tenants) == {"gold", "bronze"}
+    replay(sc, port, tmp_path, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -455,6 +455,33 @@ def test_cli_rejects_what_is_not_ported():
     with pytest.raises(SystemExit):
         serve_cli.main(["--duration", "1"])            # decode mode
     with pytest.raises(SystemExit):
-        serve_cli.main(STREAM_ARGS + ["--tenants", "gold:0"])  # tenancy
+        serve_cli.main(["--arch", "gemma-2b", "--smoke"])  # decode mode
     with pytest.raises(SystemExit):
         serve_cli.main(STREAM_ARGS + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("backend", ["analytic", "torch"])
+def test_cli_trace_in_prints_the_tenant_lines_of_the_reference(
+        backend, monkeypatch):
+    """The converted trace's rows carry tenants, so without ``--tenants``
+    the summary still ends with one ``tenant`` line per row of the
+    snapshot, as the reference's (src/repro/launch/serve.py:356-365)."""
+    import repro.launch.serve as ref_serve_cli
+    argv = ["--stream", "--trace-in",
+            str(REPO / "examples" / "traces" / "azure_llm_excerpt.jsonl")]
+    out = io.StringIO()
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    with contextlib.redirect_stdout(out):
+        ref_serve_cli.main()
+    ref = out.getvalue().splitlines()
+    port_argv = argv + (["--backend", "torch", "--device", "cpu"]
+                        if backend == "torch" else [])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_cli.main(port_argv)
+    port = out.getvalue().splitlines()
+    assert _minus_wall(port, backend) == _minus_wall(ref, "analytic")
+    tenants = [line for line in port if line.startswith("[serve] tenant ")]
+    assert [line.split(":")[0] for line in tenants] == [
+        "[serve] tenant bronze", "[serve] tenant gold"]
+    assert "completed=1492" in tenants[0] and "completed=508" in tenants[1]
