@@ -15,3 +15,10 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work, so that a host clock read after
+    it covers that work; a no-op on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -89,11 +89,15 @@ def _check(x, dt, B, C, A_log, D, chunk: int, init_state):
     return Q
 
 
+def softplus(x):
+    """softplus as ``jax.nn.softplus`` writes it: max(x, 0) +
+    log1p(exp(-|x|)). Shared with the recurrent decode step."""
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def _discretize(dt, A_log):
-    """(softplus(dt), dt * a) in float32, a = -exp(A_log). softplus as
-    ``jax.nn.softplus`` writes it: max(x, 0) + log1p(exp(-|x|))."""
-    x = dt.float()
-    dts = x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+    """(softplus(dt), dt * a) in float32, a = -exp(A_log)."""
+    dts = softplus(dt.float())
     return dts, dts * -torch.exp(A_log.float())
 
 

@@ -1,8 +1,26 @@
-"""Serving launcher: streaming request routing (repro_torch.serving), the
-port of ``repro/launch/serve.py --stream``.
+"""Serving launcher: streaming request routing (repro_torch.serving) and
+batched greedy decode for one architecture, the port of
+``repro/launch/serve.py``.
 
-Drive the signature-aware router with simulated traffic (the production
-serving path; see src/repro_torch/serving/):
+Decode mode — one architecture's LM served token by token against its
+caches (KV caches, the SWA ring buffer, the SSM conv and state caches):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+      [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] [--int8] \
+      [--device cpu]
+
+The prompt (numpy ``default_rng(0)``) is fed one token a step
+(teacher-forced), then ``--gen`` tokens are generated greedily; it prints
+tok/s and a sample. Weights are drawn from a seeded ``torch.Generator``
+(``jax.random`` cannot be reproduced, so the sample differs from the
+reference's). ``--int8`` serves the big projection matrices as int8
+(``models/quant.py``), dequantized on each use. The full config runs on
+one card (the reference runs it on a production mesh); ``--device cpu``
+runs on the CPU. The dense, ssm and hybrid families are ported; the
+others raise ``NotImplementedError`` (ROADMAP.md A.8).
+
+Streaming mode — drive the signature-aware router with simulated traffic
+(the production serving path; see src/repro_torch/serving/):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --stream --duration 120 \\
       --peak-rate 10 --trough-rate 0.5 [--fail-at 40 --rejoin-at 80] \\
@@ -123,12 +141,11 @@ backend's name):
   and for tenancy:
   --stream --trace-in examples/traces/azure_llm_excerpt.jsonl \\
       --tenants gold:0:1,bronze:2:3 --backend torch --device cpu
-
-Not ported yet: the decode mode (``--arch``) of the reference's launcher.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 
@@ -469,11 +486,102 @@ def run_stream(args):
     return router, sim, snap, wall
 
 
+@dataclasses.dataclass
+class DecodeResult:
+    cfg: object                 # the served ModelConfig
+    params: dict
+    prompt: object              # (B, prompt_len) int32 numpy
+    tokens: object              # (B, gen) int32 numpy, the greedy tokens
+    seconds: float              # host clock around the synchronised loop
+    steps: int                  # decode steps run (prompt_len + gen - 1)
+
+    @property
+    def tok_per_s(self) -> float:
+        return self.tokens.size / self.seconds
+
+    @property
+    def ms_per_step(self) -> float:
+        return self.seconds * 1e3 / self.steps
+
+
+def decode(cfg, params, prompt, gen: int, device=None):
+    """Batched greedy decode: the prompt (B, P) is fed one token a step
+    (teacher-forced), then ``gen`` tokens are generated greedily, each
+    step one ``make_serve_step`` against caches of P + gen positions.
+    Returns ((B, gen) int32 numpy tokens, seconds of the loop)."""
+    import numpy as np
+    import torch
+
+    from ..device import resolve_device, synchronize
+    from ..models.lm import init_cache
+    from .steps import make_serve_step
+
+    dev = resolve_device(device)
+    B, P = prompt.shape
+    L = P + gen
+    serve = make_serve_step(cfg, device=dev)
+    prompt_t = torch.as_tensor(np.asarray(prompt, np.int32)).to(dev)
+    outs = []
+    with torch.inference_mode():
+        cache = init_cache(cfg, B, L, device=dev)
+        tok = prompt_t[:, :1]
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for pos in range(L - 1):
+            nxt, cache = serve(params, tok, pos, cache)
+            if pos + 1 < P:
+                tok = prompt_t[:, pos + 1:pos + 2]
+            else:
+                tok = nxt
+                outs.append(nxt)
+        synchronize(dev)
+        dt = time.perf_counter() - t0
+    return torch.cat(outs, dim=1).cpu().numpy(), dt
+
+
+def run_decode(args) -> DecodeResult:
+    """Batched greedy decode for one assigned architecture."""
+    import numpy as np
+    import torch
+
+    from ..configs import get_config, get_smoke
+    from ..device import resolve_device
+    from ..models import init_params, model_decls
+
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    decls = model_decls(cfg)                 # raises for unported families
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(decls, gen, dev, cfg.pdtype)
+    if args.int8:
+        from ..models.quant import quantize_params
+        params = quantize_params(params)
+        print("[serve] int8 serving weights enabled")
+
+    B = args.batch
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, args.prompt_len), dtype=np.int32)
+    tokens, dt = decode(cfg, params, prompt, args.gen, device=dev)
+    print(f"[serve] {B} seqs x {tokens.shape[1]} tokens in {dt:.1f}s "
+          f"({B * tokens.shape[1] / dt:.1f} tok/s)")
+    print("[serve] sample:", tokens[0][:16].tolist())
+    return DecodeResult(cfg, params, prompt, tokens, dt,
+                        args.prompt_len + args.gen - 1)
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stream", action="store_true",
-                    help="streaming traffic mode (repro_torch.serving); "
-                         "the only mode ported so far")
+                    help="streaming traffic mode (repro_torch.serving)")
+    # decode-mode args
+    ap.add_argument("--arch")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--int8", action="store_true")
+    # stream-mode args
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--duration", type=float, default=120.0)
     ap.add_argument("--peak-rate", type=float, default=8.0)
@@ -493,8 +601,9 @@ def parser() -> argparse.ArgumentParser:
                     choices=("analytic", "torch"),
                     help="execution backend behind the Engine")
     ap.add_argument("--device",
-                    help="device of the torch backend (default: the card; "
-                         "'cpu' runs the kernels' plain versions)")
+                    help="device of the decode mode and of the torch "
+                         "backend (default: the card; 'cpu' runs the "
+                         "kernels' plain versions)")
     ap.add_argument("--max-cells", type=int, default=2,
                     help="signature cells resident concurrently")
     ap.add_argument("--sync", action="store_true",
@@ -638,8 +747,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     the host-profile specs come back parsed into ``{wid: HostProfile}``."""
     ap = parser()
     args = ap.parse_args(argv)
-    if not args.stream:
-        ap.error("only --stream is ported; the decode mode is not yet")
+    if not args.stream and not args.arch:
+        ap.error("--arch is required unless --stream is given")
     if args.no_preempt and not args.tenants:
         ap.error("--no-preempt requires --tenants")
     if args.replay_trace and args.trace_in:
@@ -651,8 +760,9 @@ def parse_args(argv=None) -> argparse.Namespace:
             parse_tenants(args.tenants)
         except ValueError as e:
             ap.error(str(e))
-    if args.device is not None and args.backend != "torch":
-        ap.error("--device applies to --backend torch only")
+    if args.stream and args.device is not None and args.backend != "torch":
+        ap.error("--device applies to the decode mode and --backend torch "
+                 "only")
     if (args.kill_worker is not None or args.record_cluster_events
             or args.replay_cluster_events) and not args.cluster:
         ap.error("--kill-worker/--*-cluster-events require --cluster N")
@@ -692,7 +802,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
-    run_stream(parse_args(argv))
+    args = parse_args(argv)
+    if args.stream:
+        run_stream(args)
+    else:
+        run_decode(args)
 
 
 if __name__ == "__main__":

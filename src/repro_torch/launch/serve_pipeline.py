@@ -27,7 +27,7 @@ import torch
 from ..core import (DATASETS, DynamicScheduler, GraphDataset, PerfModel,
                     gcn_workload, paper_system)
 from ..data import scaled_dataset, table1_graph
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..kernels import CsrOperand
 from ..models import init_gcn_params
 from ..runtime import PipelineExecutor
@@ -109,10 +109,10 @@ def serve(dataset: str = "OA", n_micro: int = 8, *, scale: float = 1.0,
     # 3) serve a stream of batched requests
     gen = torch.Generator(device=dev).manual_seed(SEED)
     micro = torch.randn((n_micro, V, F), generator=gen, device=dev)
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     out = ex(micro)
-    _sync(dev)
+    synchronize(dev)
     dt = time.perf_counter() - t0
     exp = torch.stack([gcn_plain(params, graph, micro[i])
                        for i in range(n_micro)])
@@ -132,11 +132,6 @@ def serve(dataset: str = "OA", n_micro: int = 8, *, scale: float = 1.0,
           f"{schedule.mnemonic} -> {s2.mnemonic}")
     return ServeResult(out, micro, params, graph, ex, err, dt,
                        schedule.mnemonic, s2.mnemonic)
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def main(argv=None):

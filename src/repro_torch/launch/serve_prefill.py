@@ -1,5 +1,6 @@
 """Prefill serving of an LM: the driver of the port's SWA slice (a dense
-LM with sliding-window attention) and of its SSD slice (mamba2).
+LM with sliding-window attention), of its SSD slice (mamba2) and of the
+hybrid family (zamba2, whose mamba blocks run the SSD kernel).
 
 The architecture's config goes through ``effective_config`` for the
 ``--shape`` (default ``long_500k``, which switches the dense archs to the
@@ -14,10 +15,12 @@ versions run).
 Defaults: qwen3-4b at full width and depth, 2 requests x 16,384 tokens
 (the long shape's 524,288-token decode cut to a prefill one card holds).
 mamba2-780m at full width and depth, 4 requests of the prefill_32k shape
-(its global batch of 32 cut to 4):
+(its global batch of 32 cut to 4), and zamba2-7b the same way:
 
     PYTHONPATH=src python -m repro_torch.launch.serve_prefill \
         --arch mamba2-780m --shape prefill_32k --batch 4 --prompt-len 32768
+    PYTHONPATH=src python -m repro_torch.launch.serve_prefill \
+        --arch zamba2-7b --shape prefill_32k --batch 2 --prompt-len 8192
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_prefill \
           [--arch qwen3-4b] [--shape long_500k] [--batch 2] \
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..configs import SHAPES, get_config, get_smoke
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..kernels import ssd_chunked, swa_attention
 from ..models.common import ModelConfig, init_params, param_count
 from ..models.lm import model_decls
@@ -69,12 +72,12 @@ def serve_prefill(arch: str = "qwen3-4b", *, shape: str = "long_500k",
     if window is not None:
         cfg = cfg.replace(window=window)
     decls = model_decls(cfg)
-    if cfg.family == "ssm":
-        mixer = (f"SSD state {cfg.ssm_state}, {cfg.ssm_heads} heads of "
-                 f"{cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
-    else:
-        mixer = (f"attention {cfg.attention}"
-                 f"{f' window {cfg.window}' if cfg.attention == 'swa' else ''}")
+    ssd = (f"SSD state {cfg.ssm_state}, {cfg.ssm_heads} heads of "
+           f"{cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
+    att = (f"attention {cfg.attention}"
+           f"{f' window {cfg.window}' if cfg.attention == 'swa' else ''}")
+    mixer = {"ssm": ssd, "hybrid": f"{ssd}; shared {att}"}.get(cfg.family,
+                                                               att)
     print(f"[model] {cfg.name}{' (smoke)' if smoke else ''} under {shape}: "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{param_count(decls):,} parameters in {cfg.param_dtype}; {mixer}")
@@ -86,11 +89,11 @@ def serve_prefill(arch: str = "qwen3-4b", *, shape: str = "long_500k",
     step = make_prefill_step(cfg, device=dev)
 
     before = swa_attention.launches, ssd_chunked.launches
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     with torch.inference_mode():
         logits = step(params, {"tokens": tokens})
-    _sync(dev)
+    synchronize(dev)
     dt = time.perf_counter() - t0
     res = PrefillResult(cfg, params, tokens, logits,
                         logits[:, -1].argmax(dim=-1), dt,
@@ -102,11 +105,6 @@ def serve_prefill(arch: str = "qwen3-4b", *, shape: str = "long_500k",
           f"{res.ssd_launches}")
     print(f"[serve] greedy next tokens: {res.next_tokens.tolist()}")
     return res
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def main(argv=None):

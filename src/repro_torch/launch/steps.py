@@ -1,6 +1,7 @@
-"""Step builders: the prefill step, and the config switch of the long shape.
+"""Step builders: the prefill step, the serve (decode) step, and the
+config switch of the long shape.
 
-The train and decode steps wait for their slices (ROADMAP.md A.9).
+The train step waits for its slice (ROADMAP.md A.9).
 """
 from __future__ import annotations
 
@@ -33,3 +34,18 @@ def make_prefill_step(cfg: ModelConfig, device=None):
         return logits_from_hidden(h[:, -1:], params, cfg)
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, device=None):
+    """A step ``(params, token, pos, cache) -> (next token, cache)``: one
+    ``lm.decode_step`` (the cache written in place; ``pos`` a Python int),
+    then the greedy token of the last position as int32 (B, 1)."""
+    resolve_device(device)
+    lm.model_decls(cfg)                      # raises for unported families
+
+    def serve_step(params, token, pos, cache):
+        logits, cache = lm.decode_step(params, token, pos, cache, cfg)
+        nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        return nxt, cache
+
+    return serve_step

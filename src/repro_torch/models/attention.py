@@ -1,18 +1,24 @@
 """Attention layers: GQA/MQA with RoPE and optional qk-norm (forward only).
 
-Two execution paths for a full sequence (train / prefill):
-  * ``flash_attention`` — full causal or bidirectional attention as an
+Three execution paths:
+  * ``flash_attention``  — full causal or bidirectional attention as an
     online-softmax scan over KV blocks (memory-bounded; plain PyTorch).
-  * ``swa_attention``   — sliding-window attention. Below the sequence
+  * ``swa_attention``    — sliding-window attention. Below the sequence
     length it runs the hand-written banded kernel through
     ``kernels.ops.swa_attention_op`` (its plain version on CPU tensors);
     a window that covers the sequence is plain causal attention.
-Decode against a KV cache and the backward passes wait for later slices.
+  * ``decode_attention`` — one new token against a KV cache (a ring buffer
+    of ``window`` slots for SWA), plain PyTorch as in the JAX package.
+    ``attention_decode_step`` writes the new k and v into the cache in
+    place, and takes ``pos`` as a Python int so that neither the slot nor
+    the mask needs the device.
+The backward passes wait for the training slice (ROADMAP.md A.9).
 """
 from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..kernels.ops import swa_attention_op
 from .common import ModelConfig, ParamDecl
 from .layers import apply_rope, rms_norm
@@ -119,3 +125,55 @@ def attention_train(p, x, positions, cfg: ModelConfig, *,
                             block_k=cfg.attn_block_k)
     o = o.reshape(B, S, cfg.q_dim)
     return o @ p["wo"].to(cfg.cdtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode (one new token against a KV cache; ring buffer for SWA)
+# ---------------------------------------------------------------------------
+def decode_attention(q, k_cache, v_cache, *, scale: float, valid):
+    """q: (B,1,H,D); caches: (B,L,KV,D); valid: (B,L) or (L,) bool."""
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qg = (q.float() * scale).reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k_cache.float())
+    if valid.dim() == 1:
+        valid = valid[None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgl,blkd->bkgd", p, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def attention_decode_step(p, x, pos: int, cache, cfg: ModelConfig, *,
+                          window: int | None = None):
+    """x: (B,1,d); pos: the absolute position, a Python int; cache:
+    dict(k,v) of (B,L,KV,D), written in place at the new token's slot
+    (``pos % L`` for SWA, ``pos`` otherwise). Returns (y, cache)."""
+    B = x.shape[0]
+    L = cache["k"].shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, positions, cfg)
+    slot = pos % L if window is not None else pos
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    idx = torch.arange(L, device=x.device)
+    if window is not None:
+        # ring buffer: every slot is valid once it is full
+        valid = (idx <= slot) | (pos >= L)
+    else:
+        valid = idx <= pos
+    o = decode_attention(q, cache["k"], cache["v"],
+                         scale=cfg.head_dim ** -0.5, valid=valid)
+    o = o.reshape(B, 1, cfg.q_dim)
+    return o @ p["wo"].to(cfg.cdtype), cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+                  window: int | None = None, dtype=None, device=None):
+    L = min(window, seq_len) if window is not None else seq_len
+    dtype = dtype or cfg.cdtype
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}

@@ -1,12 +1,12 @@
-"""Mamba2 (SSD, state-space duality) block, chunk-parallel formulation
-(prefill, forward only).
+"""Mamba2 (SSD, state-space duality) block, forward only.
 
-The sequence is split into chunks: a quadratic intra-chunk term
+Prefill: the sequence is split into chunks, a quadratic intra-chunk term
 (attention-like, bounded by Q^2) plus a linear inter-chunk state
 recurrence. The scan over chunks is the hand-written SSD kernel
 (``kernels/ssd.py:ssd_chunked``; its plain version on CPU tensors).
-The recurrent decode step and its cache wait for the decode slice
-(ROADMAP.md A.9).
+Decode: the O(1) recurrent update of one token (``mamba_decode_step``) in
+plain PyTorch, as in the JAX package, with its conv and state cache
+(``init_ssm_cache``) written in place.
 
 Notation: x (b, L, H, P) per-head inputs, B and C (b, L, N) (one group
 broadcast over heads), per-head log decay a = -exp(A_log), discrete decay
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..kernels import ssd as ssd_kernel
 from .common import ModelConfig, ParamDecl
 from .layers import rms_norm, silu
@@ -86,3 +87,45 @@ def mamba_block(p, x, cfg: ModelConfig):
     y = y.reshape(Bsz, L, di)
     y = rms_norm(y * silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"].to(cfg.cdtype)
+
+
+def mamba_decode_step(p, x, cache, cfg: ModelConfig):
+    """x: (B,1,d). cache: {'conv': (B,W-1,conv_ch), 'ssm': (B,H,P,N)},
+    written in place. The state update runs in float32 and y rounds to the
+    compute dtype once, after the D * x skip. Returns (out, cache)."""
+    Bsz = x.shape[0]
+    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    h = x @ p["in_proj"].to(cfg.cdtype)
+    z, xBC, dt = _split_in(h, cfg)
+    xBC, conv_state = _causal_conv(xBC, p["conv_w"].to(cfg.cdtype),
+                                   p["conv_b"].to(cfg.cdtype),
+                                   state=cache["conv"])
+    xs = xBC[:, 0, :di].reshape(Bsz, H, Pd).float()
+    Bmat = xBC[:, 0, di:di + N].float()
+    Cmat = xBC[:, 0, di + N:].float()
+    dtv = ssd_kernel.softplus((dt[:, 0] + p["dt_bias"]).float())   # (B,H)
+    a = -torch.exp(p["A_log"].float())
+    dA = torch.exp(dtv * a)                                          # (B,H)
+    S = cache["ssm"].float()
+    S = S * dA[:, :, None, None] + torch.einsum("bh,bn,bhp->bhpn", dtv,
+                                                Bmat, xs)
+    y = torch.einsum("bn,bhpn->bhp", Cmat, S)
+    y = y + p["D"].float()[None, :, None] * xs
+    y = y.reshape(Bsz, 1, di).to(cfg.cdtype)
+    y = rms_norm(y * silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(cfg.cdtype)
+    cache["conv"].copy_(conv_state)
+    cache["ssm"].copy_(S)
+    return out, cache
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=None, device=None):
+    dtype = dtype or torch.float32
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    dev = resolve_device(device)
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_ch),
+                            dtype=cfg.cdtype, device=dev),
+        "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state), dtype=dtype, device=dev),
+    }

@@ -64,9 +64,10 @@ def _entry_points():
     from repro_torch.launch import serve as serve_stream
     from repro_torch.launch import serve_prefill as prefill
     from repro_torch.launch.serve_pipeline import main, serve
-    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import (init_params, lm_params_from_numpy,
                                     model_decls)
+    from repro_torch.models.lm import init_cache
     from repro_torch.models import (gcn_params_from_numpy, init_gcn_params,
                                     init_gin_params)
     from repro_torch.runtime import (GroupedPipelineExecutor,
@@ -126,6 +127,16 @@ def _entry_points():
         "serve_prefill.main mamba2": lambda: prefill.main(
             ["--arch", "mamba2-780m", "--shape", "prefill_32k", "--smoke",
              "--prompt-len", "256"]),
+        "serve_prefill.main zamba2": lambda: prefill.main(
+            ["--arch", "zamba2-7b", "--shape", "prefill_32k", "--smoke",
+             "--prompt-len", "64"]),
+        "make_serve_step": lambda: make_serve_step(lm),
+        "init_cache": lambda: init_cache(lm, 1, 8),
+        "serve decode mode": lambda: serve_stream.main(
+            ["--arch", "gemma-2b", "--smoke", "--batch", "2",
+             "--prompt-len", "8", "--gen", "8"]),
+        "serve decode mode --int8 zamba2": lambda: serve_stream.main(
+            ["--arch", "zamba2-7b", "--smoke", "--int8"]),
     }
 
 

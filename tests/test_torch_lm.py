@@ -307,7 +307,7 @@ def test_lm_params_from_numpy_checks_the_tree():
         lm_params_from_numpy(tree, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-7b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b",
                                   "seamless-m4t-large-v2", "paligemma-3b"])
 def test_unported_families_raise(arch):
     cfg = tconfigs.get_smoke(arch)
