@@ -141,10 +141,12 @@ raises and the script exits non-zero:
    and zamba2-7b, each with its tok/s, ms a step and peak memory, and
    with every kernel's launch counter set to 0 just before and read just
    after (the decode steps launch none); (b) the SWA ring buffer against
-   B2: qwen3-4b under long_500k (window 4096), one seeded 8192-token
-   prompt prefilled through ``lm.forward`` (36 ``swa_attention_wgmma``
-   launches) and decoded teacher-forced through ``make_serve_step`` up to
-   position 4223 (the ring of 4096 slots wraps at 4096); (c) the
+   B2: qwen3-4b under long_500k (window 4096) at full width with its
+   depth cut to 4 layers (phase 6 serves the full depth), one seeded
+   8192-token prompt prefilled through ``lm.forward`` (4
+   ``swa_attention_wgmma`` launches) and decoded teacher-forced through
+   ``make_serve_step`` up to position 4223 (the ring of 4096 slots wraps
+   at 4096); (c) the
    recurrence against B3: mamba2-780m, 2 x 512 tokens, prefilled on the
    tensor-core route (48 calls) and decoded teacher-forced; in (b) and (c)
    each token mixer's decode output at every position is held to its
@@ -164,6 +166,31 @@ raises and the script exits non-zero:
    largest on the float32 copies, with the same argmax where the
    prefill's top two differ by more; in bfloat16 the ring's argmax is
    held so.
+
+15. drive the rest of the LM zoo, each family at full width: (a) the
+   decode CLI in process at phase 14's sizes (8 x (128 + 128) tokens,
+   every launch counter set to 0 just before and read just after: none
+   launches) for paligemma-3b and seamless-m4t-large-v2 at full depth
+   (the encoder output a tensor of ones, as the reference's decode mode
+   has it) and for deepseek-v2-236b with its depth cut to 3 layers (its
+   own 1 dense + 2 MoE; one MoE layer is 3.97 B parameters, so the full
+   model does not fit one card) through ``serve.decode``; (b)
+   ``serve_prefill`` of paligemma-3b under long_500k, 2 x 16,384
+   positions (256 seeded image-prefix embeddings + 16,128 text tokens;
+   18 launches of the FMA SWA kernel, the route of bf16 with D 256, and
+   none of any other), every kernel call held to the plain version at one
+   bf16 ulp, the FMA route timed at that shape with its bound and SDPA as
+   the yardstick; seamless-m4t-large-v2, 2 x 8,192 (source frames and
+   tokens), and deepseek-v2-236b at 3 layers, 2 x 4,096, both launching
+   no kernel; two MoE calls on one input giving the same bits; (c) each
+   MLA and each self- and cross-attention mixer's decode held to its
+   prefill on the same inputs at every position of 2 x 256 tokens
+   (deepseek at 3 layers, seamless), within 2e-2 of its largest output;
+   and a float32 copy of deepseek at 2 layers, its capacity factor raised
+   so that the prefill drops no assignment, whose logits must agree
+   within 2e-2 of the largest with the same argmax where the top two are
+   clear. It prints a ``{"zoo": {...}}`` line with the card's name and
+   power limit.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -253,16 +280,38 @@ DECODE_RUNS = {"gemma-2b": ["--arch", "gemma-2b"],
 # decode vs prefill in bfloat16, as a share of the largest logit (or of a
 # mixer's largest output): the port's bf16 prefill parity bound
 DECODE_LOGIT_TOL = 2e-2
-# (b) qwen3-4b under long_500k (window 4096): one 8192-token prompt, the
-# ring of 4096 slots wrapping at 4096, logits compared at 4095..4223 (the
-# decode's ~80 ms a step is host-bound, so 128 positions past the wrap)
-RING = {"arch": "qwen3-4b", "prompt_len": 8192, "first": 4095, "last": 4223}
+# (b) qwen3-4b under long_500k (window 4096) at full width, its depth cut
+# to 4 layers: one 8192-token prompt, the ring of 4096 slots wrapping at
+# 4096, logits compared at 4095..4223 (the decode is host-bound, ~80 ms a
+# step at full depth, so 128 positions past the wrap; the depth cut takes
+# the 4,224 steps from ~190-360 s to a ninth of it; phase 6 keeps the
+# full-depth prefill on B2)
+RING = {"arch": "qwen3-4b", "n_layers": 4, "prompt_len": 8192,
+        "first": 4095, "last": 4223}
 # (c) mamba2-780m and (d) zamba2-7b: decode vs prefill of 2 x 512 tokens;
 # zamba2's float32 copy over the first 256 of them (~130 ms a step)
 RECUR = {"batch": 2, "prompt_len": 512}
 HYBRID_FP32_LEN = 256
 HYBRID_PREFILL = {"arch": "zamba2-7b", "shape": "prefill_32k", "batch": 2,
                   "prompt_len": 8192}
+# phase 15: the rest of the zoo at full width. paligemma-3b and
+# seamless-m4t-large-v2 at full depth; deepseek-v2-236b cut to 3 layers
+# (its own 1 dense + 2 MoE: 9,330,795,520 parameters, 18.7 GB in bf16; one
+# MoE layer holds 3.97 B), its float32 copy to 2 (1 + 1, 21.4 GB)
+ZOO_DECODE = {"paligemma-3b": ["--arch", "paligemma-3b"],
+              "seamless-m4t-large-v2": ["--arch", "seamless-m4t-large-v2"]}
+ZOO_MOE = {"arch": "deepseek-v2-236b", "n_layers": 3, "fp32_layers": 2}
+# (b) prefills: paligemma under long_500k (SWA 4096 with D 256 and MQA: the
+# FMA kernel, one launch a layer) over 256 image-prefix embeddings and
+# 16,128 text tokens; seamless over 8,192 source frames and tokens
+ZOO_PREFILL = {
+    "paligemma-3b": {"shape": "long_500k", "batch": 2, "prompt_len": 16384},
+    "seamless-m4t-large-v2": {"shape": "prefill_32k", "batch": 2,
+                              "prompt_len": 8192},
+    "deepseek-v2-236b": {"shape": "prefill_32k", "batch": 2,
+                         "prompt_len": 4096}}
+# (c) decode vs prefill of 2 x 256 tokens
+ZOO_RECUR = {"batch": 2, "prompt_len": 256}
 
 
 def phase(name):
@@ -1233,26 +1282,43 @@ def key_leaves(tree, keys=()):
         yield keys, tree
 
 
-def decode_run(name, extra, counters):
-    """Phase 14 (a): ``repro_torch.launch.serve`` in its decode mode, in
-    process, at DECODE_ARGV's sizes; every kernel's launch counter set to
-    0 just before and read just after (the decode steps run none). Under
+def decode_run(name, extra, counters, cfg=None):
+    """Phases 14 (a) and 15 (a): ``repro_torch.launch.serve`` in its
+    decode mode, in process, at DECODE_ARGV's sizes; every kernel's launch
+    counter set to 0 just before and read just after (the decode steps run
+    none). With ``cfg`` (a depth cut of a config whose full depth one card
+    cannot hold) the run goes through ``serve.decode`` with that config,
+    weights and prompt drawn as ``run_decode`` draws them. Under
     ``--int8`` every leaf that ``quant._eligible`` names must be a
     ``QuantizedArray``. Returns the run's row."""
+    import numpy as np
     import torch
-    from repro_torch.launch.serve import parse_args, run_decode
-    from repro_torch.models import model_decls, quant
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, model_decls, quant
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    B, P, gen = (int(DECODE_ARGV[DECODE_ARGV.index(f) + 1])
+                 for f in ("--batch", "--prompt-len", "--gen"))
+    if cfg is not None:
+        dev = torch.device("cuda", 0)
+        params = init_params(model_decls(cfg),
+                             torch.Generator(device=dev).manual_seed(0), dev,
+                             cfg.pdtype)
+        prompt = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, P), dtype=np.int32)
     for f in counters:
         f.launches = 0
-    res = run_decode(parse_args(extra + DECODE_ARGV))
+    if cfg is None:
+        res = serve.run_decode(serve.parse_args(extra + DECODE_ARGV))
+    else:
+        tokens, dt = serve.decode(cfg, params, prompt, gen, device=dev)
+        res = serve.DecodeResult(cfg, params, prompt, tokens, dt,
+                                 P + gen - 1)
+        del params
     torch.cuda.synchronize()
     launched = {f.__name__: f.launches for f in counters if f.launches}
     cfg = res.cfg
-    B, gen = (int(DECODE_ARGV[DECODE_ARGV.index(f) + 1])
-              for f in ("--batch", "--gen"))
     row = {"arch": cfg.name, "family": cfg.family, "int8": "--int8" in extra,
            "batch": B, "steps": res.steps, "seconds": res.seconds,
            "tok_per_s": res.tok_per_s, "ms_per_step": res.ms_per_step,
@@ -1282,7 +1348,8 @@ def decode_run(name, extra, counters):
 
 def mixers(cfg, params):
     """Each token mixer of the decode step in its call order: (kind,
-    weights), kind "a" (attention) or "m" (mamba)."""
+    weights), kind "a" (attention), "l" (MLA), "x" (cross-attention) or
+    "m" (mamba)."""
     from repro_torch.models.lm import _hybrid, _layer
     if cfg.family == "hybrid":
         pat, n_macro = _hybrid(cfg)
@@ -1294,6 +1361,16 @@ def mixers(cfg, params):
                 else:
                     yield "m", _layer(params[f"mamba{mi}"], i)["mix"]
                     mi += 1
+    elif cfg.family == "moe":
+        for name, n in (("dense_layers", cfg.n_dense_layers),
+                        ("moe_layers", cfg.n_layers - cfg.n_dense_layers)):
+            for i in range(n):
+                yield "l", _layer(params[name], i)["attn"]
+    elif cfg.family == "encdec":
+        for i in range(cfg.dec_layers):
+            lp = _layer(params["dec_layers"], i)
+            yield "a", lp["attn"]
+            yield "x", lp["xattn"]
     else:
         kind = "m" if cfg.family == "ssm" else "a"
         for i in range(cfg.n_layers):
@@ -1302,14 +1379,17 @@ def mixers(cfg, params):
 
 
 def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
-                      mixer_tol):
-    """Phase 14 (b)-(d): the model's prefill of ``tokens`` (B, S) through
-    ``lm.forward`` (the kernels its dtype routes to), logits at positions
-    first..last, against a teacher-forced decode of the same tokens
-    through ``make_serve_step`` up to position ``last``, recording the
-    logits there and every token mixer's input and output at every
-    position. Then each mixer's prefill (attention_train: the SWA kernel
-    or plain flash; mamba_block: the SSD kernel) runs on the decode's
+                      mixer_tol, enc_out=None):
+    """Phases 14 (b)-(d) and 15 (c): the model's prefill of ``tokens``
+    (B, S) through ``lm.forward`` (the kernels its dtype routes to;
+    cross-attending to ``enc_out`` in the encdec family), logits at
+    positions first..last, against a teacher-forced decode of the same
+    tokens through ``make_serve_step`` up to position ``last`` (its
+    encdec cache holding ``enc_out``), recording the logits there and
+    every token mixer's input and output at every position. Then each
+    mixer's prefill (attention_train: the SWA kernel or plain flash;
+    mla_train: the expanded MLA on plain flash; the cross-attention over
+    ``enc_out``; mamba_block: the SSD kernel) runs on the decode's
     recorded inputs and is held to the decode's outputs within
     ``mixer_tol`` of its largest output (one layer of rounding either
     way). The end-to-end logits' largest difference as a share of the
@@ -1320,6 +1400,7 @@ def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import attention as attn_model
     from repro_torch.models import lm
+    from repro_torch.models import mla as mla_model
     from repro_torch.models import ssm as ssm_model
     from repro_torch.models.layers import logits_from_hidden
     dev = tokens.device
@@ -1331,7 +1412,7 @@ def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
         f.launches = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
-        h = lm.forward(params, tokens, cfg)
+        h = lm.forward(params, tokens, cfg, enc_out=enc_out)
         pre = logits_from_hidden(h[:, first:S], params, cfg)
     torch.cuda.synchronize()
     row["prefill_s"] = time.perf_counter() - t0
@@ -1345,16 +1426,19 @@ def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
     logits, calls = [], [0]
     real_decode = lm.decode_step
     real_attn = attn_model.attention_decode_step
+    real_mla = mla_model.mla_decode_step
+    real_cross = lm._cross_attention
     real_mamba = ssm_model.mamba_decode_step
 
     def recording(fn):
         def call(p, x, *args, **kw):
-            y, cache = fn(p, x, *args, **kw)
+            out = fn(p, x, *args, **kw)
+            y = out[0] if isinstance(out, tuple) else out
             step, k = divmod(calls[0], n)
             X[k, :, step] = x[:, 0]
             Y[k, :, step] = y[:, 0]
             calls[0] += 1
-            return y, cache
+            return out
         return call
 
     def recording_decode(params, token, pos, cache, cfg):
@@ -1371,8 +1455,14 @@ def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
                               recording(real_attn)), \
             mock.patch.object(ssm_model, "mamba_decode_step",
                               recording(real_mamba)), \
+            mock.patch.object(mla_model, "mla_decode_step",
+                              recording(real_mla)), \
+            mock.patch.object(lm, "_cross_attention",
+                              recording(real_cross)), \
             torch.inference_mode():
         cache = lm.init_cache(cfg, B, tokens.shape[1], device=dev)
+        if enc_out is not None:
+            cache["enc_out"].copy_(enc_out)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for pos in range(S):
@@ -1416,6 +1506,10 @@ def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
                                   dim=1)
                 y = attn_model.attention_train(
                     p, x, positions, cfg, window=lm._window(cfg))[:, :S]
+            elif kind == "l":
+                y = mla_model.mla_train(p, x, positions, cfg)
+            elif kind == "x":
+                y = real_cross(p, x, enc_out, cfg)
             else:
                 y = ssm_model.mamba_block(p, x, cfg)
             shares.append(float((y.float() - Y[k].float()).abs().max())
@@ -1436,6 +1530,203 @@ def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
                              f"prefill by {row['mixer_share_max']:.4e} of "
                              f"its largest output (limit {mixer_tol})")
     del X, Y
+    return row
+
+
+def zoo_prefill(arch, counters, n_layers=None):
+    """Phase 15 (b): ``serve_prefill`` of one zoo arch at ZOO_PREFILL's
+    size, every kernel's launch counter set to 0 just before and read
+    just after; ``n_layers`` cuts the depth of the arch's config (the
+    driver builds the full one). Returns (the result, its row)."""
+    import torch
+    from repro_torch.launch import serve_prefill as sp
+    spec = ZOO_PREFILL[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get = sp.get_config
+    if n_layers is not None:
+        def get(a):
+            return full(a).replace(n_layers=n_layers)
+    for f in counters:
+        f.launches = 0
+    with mock.patch.object(sp, "get_config", get):
+        res = sp.serve_prefill(arch, shape=spec["shape"], batch=spec["batch"],
+                               prompt_len=spec["prompt_len"],
+                               device=torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    launched = {f.__name__: f.launches for f in counters if f.launches}
+    cfg = res.cfg
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "shape": spec["shape"],
+           "batch": spec["batch"], "positions": res.positions,
+           "seconds": res.seconds, "tok_per_s": res.tok_per_s,
+           "launches": launched,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"[prefill] {cfg.name}: {json.dumps(row)}", flush=True)
+    if tuple(res.logits.shape) != (spec["batch"], 1, cfg.padded_vocab) \
+            or not torch.isfinite(res.logits).all():
+        raise AssertionError(f"{cfg.name} prefill logits are wrong: "
+                             f"{tuple(res.logits.shape)}")
+    return res, row
+
+
+def zoo_phase(gen, card, counters):
+    """Phase 15: the moe, encdec and vlm families on the card (see the
+    module docstring). Returns the row printed as ``{"zoo": ...}``, with
+    what the kernels line needs under "fma"."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import effective_config, make_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_model
+    from repro_torch.models.common import tree_map
+    dev = torch.device("cuda", 0)
+    row = {"card": card, "decode": {}, "prefill": {}}
+    mcfg = get_config(ZOO_MOE["arch"]).replace(n_layers=ZOO_MOE["n_layers"])
+
+    # (a) the decode CLI
+    for name, extra in ZOO_DECODE.items():
+        row["decode"][name] = decode_run(name, extra, counters)
+    name = f"{mcfg.name} n_layers={mcfg.n_layers}"
+    row["decode"][name] = decode_run(name, [], counters, cfg=mcfg)
+
+    # (b) the prefills through serve_prefill
+    pg, row["prefill"]["paligemma-3b"] = zoo_prefill("paligemma-3b",
+                                                     counters)
+    pcfg = pg.cfg
+    if pcfg != effective_config(get_config("paligemma-3b"),
+                                SHAPES["long_500k"]) \
+            or (pcfg.attention, pcfg.window) != ("swa", 4096):
+        raise AssertionError(f"not the full paligemma-3b SWA config: {pcfg}")
+    n = pcfg.n_layers
+    if row["prefill"]["paligemma-3b"]["launches"] != {
+            "swa_attention": n, "swa_attention_fma": n}:
+        raise AssertionError(f"paligemma: expected {n} launches of the FMA "
+                             f"SWA kernel and no other, saw "
+                             f"{row['prefill']['paligemma-3b']['launches']}")
+    errs = []
+    t0 = time.perf_counter()
+    with mock.patch.object(ops, "swa_attention", holding_kernel(errs)), \
+            torch.inference_mode():
+        held = make_prefill_step(pcfg, device=dev)(pg.params, pg.batch)
+    torch.cuda.synchronize()
+    print(f"[check] served paligemma forward, {len(errs)} kernel calls held "
+          f"to the plain version: {time.perf_counter() - t0:.1f} s; max abs "
+          f"err per layer {errs}", flush=True)
+    if len(errs) != n or not torch.equal(held, pg.logits):
+        raise AssertionError("the held paligemma forward does not reproduce "
+                             "the served logits")
+    del pg, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S, H, KV, D, W = (2, ZOO_PREFILL["paligemma-3b"]["prompt_len"],
+                         pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim,
+                         pcfg.window)
+    base = [torch.randn((B, S, n, D), generator=gen, device=dev).to(
+        torch.bfloat16) for n in (H, KV, KV)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    fma_row = check_swa(f"paligemma prefill S={S} window={W} H={H} KV={KV} "
+                        f"D={D} bf16 (B,S,H,D) views", q, k, v, W,
+                        time_it=True)
+    if fma_row["kernel"] != "fma":
+        raise AssertionError("paligemma's SWA shape is not routed to the "
+                             "FMA kernel")
+    del q, k, v, base
+    row["fma"] = {"launches": n, "held_max_abs_err": max(errs),
+                  "shape": fma_row}
+
+    sm, row["prefill"]["seamless-m4t-large-v2"] = zoo_prefill(
+        "seamless-m4t-large-v2", counters)
+    scfg = sm.cfg
+    if scfg != get_config("seamless-m4t-large-v2"):
+        raise AssertionError(f"not the full seamless config: {scfg}")
+    s_params = sm.params
+    del sm
+    ds, row["prefill"]["deepseek-v2-236b"] = zoo_prefill(
+        ZOO_MOE["arch"], counters, n_layers=ZOO_MOE["n_layers"])
+    d_params = ds.params
+    if ds.cfg != mcfg:
+        raise AssertionError(f"not deepseek-v2-236b's config at "
+                             f"{mcfg.n_layers} layers: {ds.cfg}")
+    del ds
+    for arch in ("seamless-m4t-large-v2", "deepseek-v2-236b"):
+        if row["prefill"][arch]["launches"]:
+            raise AssertionError(f"{arch} prefill launched "
+                                 f"{row['prefill'][arch]['launches']}")
+
+    # two MoE calls on one input give the same bits (no atomics)
+    lp = tree_map(lambda t: t[0], d_params["moe_layers"]["ffn"])
+    x = torch.randn((2, ZOO_PREFILL["deepseek-v2-236b"]["prompt_len"],
+                     mcfg.d_model), generator=gen, device=dev).to(mcfg.cdtype)
+    with torch.inference_mode():
+        y0, a0 = moe_model.moe_ffn(lp, x, mcfg)
+        y1, a1 = moe_model.moe_ffn(lp, x, mcfg)
+        torch.cuda.synchronize()
+        row["moe_ffn_ms"] = time_ms(lambda: moe_model.moe_ffn(lp, x, mcfg),
+                                    3)
+    row["moe_bit_repeatable"] = bool(torch.equal(y0, y1)
+                                     and torch.equal(a0, a1))
+    row["moe_tokens"] = x.shape[0] * x.shape[1]
+    del x, y0, y1, lp
+    if not row["moe_bit_repeatable"]:
+        raise AssertionError("two MoE calls on one input differ")
+
+    # (c) decode against prefill
+    L = ZOO_RECUR["prompt_len"]
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, mcfg.vocab_size, (ZOO_RECUR["batch"], L), dtype=np.int32)).to(dev)
+    row["mla"] = decode_vs_prefill(f"(c) MLA {mcfg.name} n_layers="
+                                   f"{mcfg.n_layers}", mcfg, d_params, tokens,
+                                   0, L - 1, counters, DECODE_LOGIT_TOL)
+    # the float32 copy: its capacity factor keeps every assignment of the
+    # prefill's 512 tokens (the decode's 2 a step never overflow; the
+    # prefill's drops past capacity are the reference's by design)
+    fcfg = mcfg.replace(n_layers=ZOO_MOE["fp32_layers"],
+                        param_dtype="float32", compute_dtype="float32",
+                        capacity_factor=mcfg.n_experts / mcfg.top_k)
+    cut = dict(d_params, moe_layers=tree_map(
+        lambda t: t[:fcfg.n_layers - fcfg.n_dense_layers],
+        d_params["moe_layers"]))
+    del d_params
+    gc.collect()
+    f_params = tree_map(lambda t: t.float(), cut)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["mla_float32"] = decode_vs_prefill(
+        f"(c) MLA {fcfg.name} n_layers={fcfg.n_layers} float32 copy", fcfg,
+        f_params, tokens, 0, L - 1, counters, FP32_LOGITS_TOL)
+    del f_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    frames = torch.from_numpy(rng.standard_normal(
+        (ZOO_RECUR["batch"], L, scfg.d_model), dtype=np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(
+        0, scfg.vocab_size, (ZOO_RECUR["batch"], L), dtype=np.int32)).to(dev)
+    with torch.inference_mode():
+        enc = lm.encode(s_params, frames, scfg)
+    row["cross"] = decode_vs_prefill(
+        f"(c) self- and cross-attention {scfg.name}", scfg, s_params,
+        tokens, 0, L - 1, counters, DECODE_LOGIT_TOL, enc_out=enc)
+    del s_params, enc, frames, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    for part in ("mla", "mla_float32", "cross"):
+        if row[part]["prefill_launches"] or \
+                row[part]["mixer_prefill_launches"]:
+            raise AssertionError(f"{part}: a prefill launched a kernel")
+    f32 = row["mla_float32"]
+    if not f32["logit_share"] <= DECODE_LOGIT_TOL \
+            or f32["argmax_clear_agree"] != f32["argmax_clear"]:
+        raise AssertionError(
+            f"{f32['label']}: logits {f32['logit_share']:.4e} of the largest "
+            f"(limit {DECODE_LOGIT_TOL}), argmax equal at "
+            f"{f32['argmax_clear_agree']} of {f32['argmax_clear']} clear "
+            f"positions")
+    print(json.dumps({"zoo": row}), flush=True)
     return row
 
 
@@ -2083,10 +2374,11 @@ def main():
         torch.cuda.empty_cache()
 
     # (b) the SWA ring buffer against B2
-    rcfg = effective_config(get_config(RING["arch"]), SHAPES["long_500k"])
+    rcfg = effective_config(get_config(RING["arch"]), SHAPES["long_500k"]
+                            ).replace(n_layers=RING["n_layers"])
     if (rcfg.attention, rcfg.window, rcfg.n_layers, rcfg.d_model) != \
-            ("swa", 4096, 36, 2560):
-        raise AssertionError(f"not the full qwen3-4b SWA config: {rcfg}")
+            ("swa", 4096, RING["n_layers"], 2560):
+        raise AssertionError(f"not the qwen3-4b SWA config: {rcfg}")
     torch.cuda.reset_peak_memory_stats()
     params = init_params(model_decls(rcfg),
                          torch.Generator(device=dev).manual_seed(0), dev,
@@ -2097,10 +2389,12 @@ def main():
                              rcfg, params, tokens, RING["first"],
                              RING["last"], kernels14, DECODE_LOGIT_TOL)
     ring["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    swa36 = {"swa_attention": 36, "swa_attention_wgmma": 36}
-    if ring["prefill_launches"] != swa36 \
-            or ring["mixer_prefill_launches"] != swa36:
-        raise AssertionError(f"(b): expected 36 wgmma SWA launches in each "
+    swa_n = {"swa_attention": rcfg.n_layers,
+             "swa_attention_wgmma": rcfg.n_layers}
+    if ring["prefill_launches"] != swa_n \
+            or ring["mixer_prefill_launches"] != swa_n:
+        raise AssertionError(f"(b): expected {rcfg.n_layers} wgmma SWA "
+                             f"launches in each "
                              f"prefill, saw {ring['prefill_launches']} and "
                              f"{ring['mixer_prefill_launches']}")
     decode_row["ring"] = ring
@@ -2229,7 +2523,8 @@ def main():
     print(json.dumps({"decode": decode_row}), flush=True)
     # end to end: in bf16 the rounding differences between the prefill's
     # and the decode's products grow with depth (the ring's logits differ
-    # by 2.06% of the largest, mamba2's by 22%, zamba2's by 17%, where no
+    # by 2.06% of the largest at 36 layers, 1.1% at 4, mamba2's by 22%,
+    # zamba2's by 17%, where no
     # mixer differs by 1% of its output), so the logits are held to
     # DECODE_LOGIT_TOL on the float32 copies (mamba2's differ by 1.8e-4),
     # and in bf16 only the ring's argmax, where the top two are clear
@@ -2244,6 +2539,13 @@ def main():
                 f"{part['label']}: argmax equal at "
                 f"{part['argmax_clear_agree']} of {part['argmax_clear']} "
                 f"clear positions")
+
+    # 15) the rest of the zoo
+    phase("15. main path: the rest of the LM zoo (MLA + MoE of deepseek-v2, "
+          "the encoder-decoder of seamless-m4t, the vlm prefix of "
+          "paligemma) in decode and prefill")
+    zoo = zoo_phase(gen, card, kernels14)
+    pg_fma = zoo["fma"]["shape"]
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",
@@ -2275,15 +2577,26 @@ def main():
         "library_ms": main_swa["library_ms"],
         "ring_prefill_launches": ring["prefill_launches"][
             "swa_attention_wgmma"]}, {
+        # its served path: paligemma-3b under long_500k (bf16, D 256)
         "name": "swa_attention_fma", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
-        "replaces": "src/repro/kernels/swa.py:81", "launches": fma_launches,
+        "replaces": "src/repro/kernels/swa.py:81",
+        "launches": zoo["fma"]["launches"],
+        "qwen3_prefill_launches": fma_launches,
         "max_abs_err": max([r["max_abs_err"] for r in swa_rows
                             if r["kernel"] == "fma"]
-                           + [main_swa["fma_max_abs_err"]]),
-        "ms": main_swa["fma_ms"], "plain_ms": main_swa["plain_ms"],
-        "bound_ms": main_swa["bound_ms"], "bound_by": main_swa["bound_by"],
-        "library_ms": main_swa["library_ms"]}, {
+                           + [main_swa["fma_max_abs_err"],
+                              pg_fma["max_abs_err"],
+                              zoo["fma"]["held_max_abs_err"]]),
+        "ms": pg_fma["ms"], "plain_ms": pg_fma["plain_ms"],
+        "bound_ms": pg_fma["bound_ms"], "bound_by": pg_fma["bound_by"],
+        "library_ms": pg_fma["library_ms"], "library": pg_fma["library"],
+        "shape": {"q": pg_fma["q"], "kv": pg_fma["kv"],
+                  "window": pg_fma["window"]},
+        "qwen3_shape": {"ms": main_swa["fma_ms"],
+                        "plain_ms": main_swa["plain_ms"],
+                        "bound_ms": main_swa["bound_ms"],
+                        "library_ms": main_swa["library_ms"]}}, {
         # three launches a call: K1, K2 and K3, one each
         "name": "ssd_chunk_tc", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_tc.cu",

@@ -16,8 +16,10 @@ tok/s and a sample. Weights are drawn from a seeded ``torch.Generator``
 reference's). ``--int8`` serves the big projection matrices as int8
 (``models/quant.py``), dequantized on each use. The full config runs on
 one card (the reference runs it on a production mesh); ``--device cpu``
-runs on the CPU. The dense, ssm and hybrid families are ported; the
-others raise ``NotImplementedError`` (ROADMAP.md A.8).
+runs on the CPU. Every family is served: the moe family (deepseek)
+through the absorbed MLA decode against its latent cache, the encdec
+family (seamless) cross-attending to an encoder output of ones (the
+reference's stand-in), the vlm family (paligemma) on its text tokens.
 
 Streaming mode — drive the signature-aware router with simulated traffic
 (the production serving path; see src/repro_torch/serving/):
@@ -508,7 +510,9 @@ def decode(cfg, params, prompt, gen: int, device=None):
     """Batched greedy decode: the prompt (B, P) is fed one token a step
     (teacher-forced), then ``gen`` tokens are generated greedily, each
     step one ``make_serve_step`` against caches of P + gen positions.
-    Returns ((B, gen) int32 numpy tokens, seconds of the loop)."""
+    The encdec family cross-attends to an encoder output of ones, as the
+    reference's decode mode does. Returns ((B, gen) int32 numpy tokens,
+    seconds of the loop)."""
     import numpy as np
     import torch
 
@@ -524,6 +528,8 @@ def decode(cfg, params, prompt, gen: int, device=None):
     outs = []
     with torch.inference_mode():
         cache = init_cache(cfg, B, L, device=dev)
+        if cfg.family == "encdec":
+            cache["enc_out"].fill_(1)
         tok = prompt_t[:, :1]
         synchronize(dev)
         t0 = time.perf_counter()
@@ -551,7 +557,7 @@ def run_decode(args) -> DecodeResult:
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    decls = model_decls(cfg)                 # raises for unported families
+    decls = model_decls(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(decls, gen, dev, cfg.pdtype)
     if args.int8:

@@ -23,14 +23,23 @@ def effective_config(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
 
 def make_prefill_step(cfg: ModelConfig, device=None):
     """A step ``(params, batch) -> (B, 1, V)`` float32 logits of the last
-    position, for every ported family (dense, ssm). ``batch["tokens"]`` is
-    (B, S) and is moved to ``device``."""
+    position. ``batch["tokens"]`` is (B, S); the vlm family also reads
+    ``batch["prefix_embeds"]`` (B, Sp, frontend_dim) and the encdec family
+    ``batch["src_frames"]`` (B, Se, d_model), which it encodes first. Each
+    is moved to ``device``."""
     dev = resolve_device(device)
-    lm.model_decls(cfg)                      # raises for unported families
+    lm.model_decls(cfg)                      # raises for an unknown family
 
     def prefill_step(params, batch):
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
-        h = lm.forward(params, tokens, cfg)
+        kw = {}
+        if cfg.family == "vlm":
+            kw["prefix_embeds"] = torch.as_tensor(
+                batch["prefix_embeds"]).to(dev)
+        if cfg.family == "encdec":
+            kw["enc_out"] = lm.encode(
+                params, torch.as_tensor(batch["src_frames"]).to(dev), cfg)
+        h = lm.forward(params, tokens, cfg, **kw)
         return logits_from_hidden(h[:, -1:], params, cfg)
 
     return prefill_step
@@ -41,7 +50,7 @@ def make_serve_step(cfg: ModelConfig, device=None):
     ``lm.decode_step`` (the cache written in place; ``pos`` a Python int),
     then the greedy token of the last position as int32 (B, 1)."""
     resolve_device(device)
-    lm.model_decls(cfg)                      # raises for unported families
+    lm.model_decls(cfg)                      # raises for an unknown family
 
     def serve_step(params, token, pos, cache):
         logits, cache = lm.decode_step(params, token, pos, cache, cfg)

@@ -1,18 +1,27 @@
-"""Model assembly, forward and decode, for the ported families:
+"""Model assembly, forward and decode, for every family of the JAX
+package:
 
   dense  — (GQA/MQA attention + gated FFN) x N   (gemma, qwen, mistral)
+  moe    — MLA attention + (dense FFN | routed experts)   (deepseek v2/v3):
+           the leading ``n_dense_layers`` with a dense FFN of
+           ``d_ff_dense``, then the MoE layers
   ssm    — (RMSNorm -> Mamba2 mixer -> residual) x N   (mamba2-780m)
   hybrid — [shared attention, mamba, mamba] macro-blocks   (zamba2): one
            attention block, its weights shared by every macro-block, and
            the mamba blocks stacked over the macro-blocks
+  encdec — bidirectional encoder + causal decoder with cross-attention
+           (seamless); the frontend is a stub, ``encode`` takes frames
+  vlm    — the dense backbone behind projected prefix embeddings
+           (paligemma); the vision frontend is a stub
 
 Parameters are a nested dict shaped like the JAX package's pytree, with
 the per-layer weights stacked along a leading layer axis; ``forward`` and
 ``decode_step`` walk the layers in a Python loop over views of that
 stack, so the decode step's in-place cache writes land in the stacked
-cache of ``init_cache``. ``lm_params_from_numpy`` carries the reference's
-parameters across. The other families wait for later slices (ROADMAP.md
-A.8).
+cache of ``init_cache``. ``forward`` returns the hidden states only: the
+MoE router's aux loss, which the reference also returns, is for the
+training loss (``moe.moe_ffn`` returns it). ``lm_params_from_numpy``
+carries the reference's parameters across.
 """
 from __future__ import annotations
 
@@ -23,37 +32,26 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import ModelConfig, ParamDecl, tree_leaves, tree_map
 from .layers import (embed_apply, embed_decls, ffn_apply, ffn_decls,
                      logits_from_hidden, norm_decl, rms_norm)
 
-_PORTED = ("dense", "ssm", "hybrid")
-_NOT_PORTED = {
-    "moe": "ROADMAP.md A.8 (models/mla.py, models/moe.py)",
-    "encdec": "ROADMAP.md A.8 (encoder and cross-attention)",
-    "vlm": "ROADMAP.md A.8 (prefix embeddings of the vlm family)",
-}
-
-
-def _require_ported(cfg: ModelConfig):
-    if cfg.family not in _PORTED:
-        where = _NOT_PORTED.get(cfg.family)
-        if where is None:
-            raise ValueError(cfg.family)
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: {where}")
-
 
 # ---------------------------------------------------------------------------
 # Declarations
 # ---------------------------------------------------------------------------
-def _attn_block_decls(cfg: ModelConfig, stack: int | None):
+def _attn_block_decls(cfg: ModelConfig, stack: int | None, *, d_ff=None,
+                      moe=False, mla=False):
     st = () if stack is None else (stack,)
     return {"ln1": ParamDecl(st + (cfg.d_model,), init="ones"),
             "ln2": ParamDecl(st + (cfg.d_model,), init="ones"),
-            "attn": attn.attn_decls(cfg, stack),
-            "ffn": ffn_decls(cfg, None, stack)}
+            "attn": (mla_mod.mla_decls(cfg, stack) if mla
+                     else attn.attn_decls(cfg, stack)),
+            "ffn": (moe_mod.moe_decls(cfg, stack) if moe
+                    else ffn_decls(cfg, d_ff, stack))}
 
 
 def _mamba_block_decls(cfg: ModelConfig, stack: int | None):
@@ -63,18 +61,38 @@ def _mamba_block_decls(cfg: ModelConfig, stack: int | None):
 
 
 def model_decls(cfg: ModelConfig):
-    _require_ported(cfg)
     decls: dict[str, Any] = dict(embed_decls(cfg))
     decls["final_norm"] = norm_decl(cfg.d_model)
-    if cfg.family == "ssm":
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        decls["layers"] = _attn_block_decls(cfg, cfg.n_layers)
+        if fam == "vlm" and cfg.frontend_dim:
+            decls["vision_proj"] = ParamDecl((cfg.frontend_dim, cfg.d_model),
+                                             fan_in=cfg.frontend_dim)
+    elif fam == "moe":
+        nd = cfg.n_dense_layers
+        if nd:
+            decls["dense_layers"] = _attn_block_decls(
+                cfg, nd, d_ff=cfg.d_ff_dense or cfg.d_ff, mla=True)
+        if cfg.n_layers - nd > 0:
+            decls["moe_layers"] = _attn_block_decls(
+                cfg, cfg.n_layers - nd, moe=True, mla=True)
+    elif fam == "ssm":
         decls["layers"] = _mamba_block_decls(cfg, cfg.n_layers)
-    elif cfg.family == "hybrid":
+    elif fam == "hybrid":
         pat, n_macro = _hybrid(cfg)
         decls["shared_attn"] = _attn_block_decls(cfg, None)
         for i in range(pat.count("m")):
             decls[f"mamba{i}"] = _mamba_block_decls(cfg, n_macro)
+    elif fam == "encdec":
+        decls["enc_layers"] = _attn_block_decls(cfg, cfg.enc_layers)
+        dec = _attn_block_decls(cfg, cfg.dec_layers)
+        dec["ln_x"] = ParamDecl((cfg.dec_layers, cfg.d_model), init="ones")
+        dec["xattn"] = attn.attn_decls(cfg, cfg.dec_layers)
+        decls["dec_layers"] = dec
+        decls["enc_final_norm"] = norm_decl(cfg.d_model)
     else:
-        decls["layers"] = _attn_block_decls(cfg, cfg.n_layers)
+        raise ValueError(fam)
     return decls
 
 
@@ -118,13 +136,23 @@ def _window(cfg: ModelConfig):
     return cfg.window if cfg.attention == "swa" else None
 
 
-def attn_block(p, x, positions, cfg: ModelConfig):
+def attn_block(p, x, positions, cfg: ModelConfig, *, causal=True,
+               moe=False, mla=False):
+    """Pre-norm attention (GQA/MQA, or MLA) and FFN (dense, or routed
+    experts whose aux loss is dropped here) with residuals."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h = attn.attention_train(p["attn"], h, positions, cfg,
-                             window=_window(cfg))
+    if mla:
+        h = mla_mod.mla_train(p["attn"], h, positions, cfg)
+    else:
+        h = attn.attention_train(p["attn"], h, positions, cfg,
+                                 window=_window(cfg), causal=causal)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], h, cfg)
+    if moe:
+        h, _ = moe_mod.moe_ffn(p["ffn"], h, cfg)
+    else:
+        h = ffn_apply(p["ffn"], h, cfg)
+    return x + h
 
 
 def mamba_block(p, x, cfg: ModelConfig):
@@ -137,15 +165,31 @@ def _layer(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """tokens: (B, S) integer tensor -> final-norm hidden states (B, S, d).
-    (The reference also returns an aux loss, which is 0 for these
-    families.)"""
-    _require_ported(cfg)
+def _dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of the moe family's leading dense layers."""
+    return cfg.replace(d_ff=cfg.d_ff_dense or cfg.d_ff)
+
+
+def _positions(x):
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device).expand(B, S)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+            enc_out=None):
+    """tokens: (B, S) integer tensor -> final-norm hidden states (B, S', d).
+    prefix_embeds: (B, Sp, frontend_dim) for the vlm family, projected and
+    put before the tokens (S' = Sp + S); enc_out: the encoder's hidden
+    states (``encode``) that the encdec decoder cross-attends to."""
     x = embed_apply(params, tokens, cfg)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    if cfg.family == "hybrid":
+    if cfg.family == "vlm" and prefix_embeds is not None:
+        pe = prefix_embeds.to(cfg.cdtype)
+        if cfg.frontend_dim:
+            pe = pe @ params["vision_proj"].to(cfg.cdtype)
+        x = torch.cat([pe, x], dim=1)
+    positions = _positions(x)
+    fam = cfg.family
+    if fam == "hybrid":
         pat, n_macro = _hybrid(cfg)
         for i in range(n_macro):
             mi = 0
@@ -155,14 +199,55 @@ def forward(params, tokens, cfg: ModelConfig):
                 else:
                     x = mamba_block(_layer(params[f"mamba{mi}"], i), x, cfg)
                     mi += 1
+    elif fam == "moe":
+        dcfg = _dense_cfg(cfg)
+        for i in range(cfg.n_dense_layers):
+            x = attn_block(_layer(params["dense_layers"], i), x, positions,
+                           dcfg, mla=True)
+        for i in range(cfg.n_layers - cfg.n_dense_layers):
+            x = attn_block(_layer(params["moe_layers"], i), x, positions,
+                           cfg, moe=True, mla=True)
+    elif fam == "encdec":
+        # each decoder layer: the causal self-attention block (attention,
+        # then FFN), then cross-attention to enc_out
+        for i in range(cfg.dec_layers):
+            lp = _layer(params["dec_layers"], i)
+            x = attn_block(lp, x, positions, cfg)
+            hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+            x = x + _cross_attention(lp["xattn"], hx, enc_out, cfg)
     else:
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
-            if cfg.family == "ssm":
+            if fam == "ssm":
                 x = mamba_block(lp, x, cfg)
             else:
                 x = attn_block(lp, x, positions, cfg)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def encode(params, frames, cfg: ModelConfig):
+    """Bidirectional encoder over precomputed frontend frames (B, S, d)."""
+    x = frames.to(cfg.cdtype)
+    positions = _positions(x)
+    for i in range(cfg.enc_layers):
+        x = attn_block(_layer(params["enc_layers"], i), x, positions, cfg,
+                       causal=False)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_attention(p, x, enc_out, cfg: ModelConfig):
+    """Queries from x, keys and values from enc_out; no RoPE, no mask."""
+    B, S, _ = x.shape
+    Se = enc_out.shape[1]
+    q = x @ p["wq"].to(cfg.cdtype)
+    k = enc_out @ p["wk"].to(cfg.cdtype)
+    v = enc_out @ p["wv"].to(cfg.cdtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    o = attn.flash_attention(q, k, v, scale=cfg.head_dim ** -0.5,
+                             causal=False, block_k=cfg.attn_block_k)
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(cfg.cdtype)
 
 
 # ---------------------------------------------------------------------------
@@ -170,36 +255,67 @@ def forward(params, tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
     """Cache tree with a stacked leading layer dim per stack, zeros on
-    ``device``."""
-    _require_ported(cfg)
+    ``device``. The encdec cache also holds ``enc_out`` (B, seq_len, d),
+    which the caller fills with the encoder's output."""
     dev = resolve_device(device)
     w = _window(cfg)
+    fam = cfg.family
 
     def stack(n, one):
         return tree_map(lambda a: a.new_zeros((n,) + a.shape), one)
 
-    def kv():
-        return attn.init_kv_cache(cfg, batch, seq_len, window=w, device=dev)
+    def kv(window=w):
+        return attn.init_kv_cache(cfg, batch, seq_len, window=window,
+                                  device=dev)
 
-    if cfg.family == "dense":
+    if fam in ("dense", "vlm"):
         return {"layers": stack(cfg.n_layers, kv())}
-    if cfg.family == "ssm":
+    if fam == "moe":
+        return {"layers": stack(cfg.n_layers, mla_mod.init_mla_cache(
+            cfg, batch, seq_len, device=dev))}
+    if fam == "ssm":
         return {"layers": stack(cfg.n_layers,
                                 ssm_mod.init_ssm_cache(cfg, batch,
                                                        device=dev))}
-    pat, n_macro = _hybrid(cfg)
-    c = {"attn": stack(n_macro, kv())}
-    for i in range(pat.count("m")):
-        c[f"mamba{i}"] = stack(n_macro,
-                               ssm_mod.init_ssm_cache(cfg, batch, device=dev))
-    return c
+    if fam == "hybrid":
+        pat, n_macro = _hybrid(cfg)
+        c = {"attn": stack(n_macro, kv())}
+        for i in range(pat.count("m")):
+            c[f"mamba{i}"] = stack(n_macro, ssm_mod.init_ssm_cache(
+                cfg, batch, device=dev))
+        return c
+    if fam == "encdec":
+        return {"self": stack(cfg.dec_layers, kv(None)),
+                "enc_out": torch.zeros((batch, seq_len, cfg.d_model),
+                                       dtype=cfg.cdtype, device=dev)}
+    raise ValueError(fam)
 
 
-def _attn_step(h, lp, lc, pos, cfg):
+def _attn_step(h, lp, lc, pos, cfg, *, moe=False, mla=False):
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    a, _ = attn.attention_decode_step(lp["attn"], hn, pos, lc, cfg,
-                                      window=_window(cfg))
+    if mla:
+        a, _ = mla_mod.mla_decode_step(lp["attn"], hn, pos, lc, cfg)
+    else:
+        a, _ = attn.attention_decode_step(lp["attn"], hn, pos, lc, cfg,
+                                          window=_window(cfg))
     h = h + a
+    hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if moe:
+        f, _ = moe_mod.moe_ffn(lp["ffn"], hn, cfg)
+    else:
+        f = ffn_apply(lp["ffn"], hn, cfg)
+    return h + f
+
+
+def _dec_step(h, lp, lc, pos, enc_out, cfg):
+    """One encdec decoder layer on one token: self-attention, then
+    cross-attention, then the FFN (the reference's decode order; its
+    forward runs the FFN before the cross-attention)."""
+    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    a, _ = attn.attention_decode_step(lp["attn"], hn, pos, lc, cfg)
+    h = h + a
+    hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
+    h = h + _cross_attention(lp["xattn"], hx, enc_out, cfg)
     hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
     return h + ffn_apply(lp["ffn"], hn, cfg)
 
@@ -214,9 +330,9 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     """token: (B,1) integer tensor; pos: its absolute position, a Python
     int. Writes the new token's entries into ``cache`` in place and
     returns (float32 logits (B,1,V), cache)."""
-    _require_ported(cfg)
     x = embed_apply(params, token, cfg)
-    if cfg.family == "hybrid":
+    fam = cfg.family
+    if fam == "hybrid":
         pat, n_macro = _hybrid(cfg)
         for i in range(n_macro):
             mi = 0
@@ -229,10 +345,26 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
                     x = _mamba_step(x, _layer(params[name], i),
                                     _layer(cache[name], i), cfg)
                     mi += 1
+    elif fam == "moe":
+        nd = cfg.n_dense_layers
+        dcfg = _dense_cfg(cfg)
+        for i in range(cfg.n_layers):
+            lc = _layer(cache["layers"], i)
+            if i < nd:
+                x = _attn_step(x, _layer(params["dense_layers"], i), lc,
+                               pos, dcfg, mla=True)
+            else:
+                x = _attn_step(x, _layer(params["moe_layers"], i - nd), lc,
+                               pos, cfg, moe=True, mla=True)
+    elif fam == "encdec":
+        for i in range(cfg.dec_layers):
+            x = _dec_step(x, _layer(params["dec_layers"], i),
+                          _layer(cache["self"], i), pos, cache["enc_out"],
+                          cfg)
     else:
         for i in range(cfg.n_layers):
             lp, lc = _layer(params["layers"], i), _layer(cache["layers"], i)
-            if cfg.family == "ssm":
+            if fam == "ssm":
                 x = _mamba_step(x, lp, lc, cfg)
             else:
                 x = _attn_step(x, lp, lc, pos, cfg)

@@ -68,6 +68,7 @@ def _entry_points():
     from repro_torch.models import (init_params, lm_params_from_numpy,
                                     model_decls)
     from repro_torch.models.lm import init_cache
+    from repro_torch.models.mla import init_mla_cache
     from repro_torch.models import (gcn_params_from_numpy, init_gcn_params,
                                     init_gin_params)
     from repro_torch.runtime import (GroupedPipelineExecutor,
@@ -137,6 +138,20 @@ def _entry_points():
              "--prompt-len", "8", "--gen", "8"]),
         "serve decode mode --int8 zamba2": lambda: serve_stream.main(
             ["--arch", "zamba2-7b", "--smoke", "--int8"]),
+        "make_prefill_step deepseek": lambda: make_prefill_step(
+            get_smoke("deepseek-v2-236b")),
+        "make_prefill_step seamless": lambda: make_prefill_step(
+            get_smoke("seamless-m4t-large-v2")),
+        "init_mla_cache": lambda: init_mla_cache(
+            get_smoke("deepseek-v2-236b"), 1, 8),
+        "serve_prefill paligemma": lambda: prefill.serve_prefill(
+            "paligemma-3b", smoke=True, prompt_len=256, window=128),
+        "serve decode mode deepseek": lambda: serve_stream.main(
+            ["--arch", "deepseek-v2-236b", "--smoke"]),
+        "serve decode mode seamless": lambda: serve_stream.main(
+            ["--arch", "seamless-m4t-large-v2", "--smoke"]),
+        "serve decode mode paligemma": lambda: serve_stream.main(
+            ["--arch", "paligemma-3b", "--smoke"]),
     }
 
 

@@ -78,7 +78,7 @@ def main(argv=None):
     res = serve_prefill(args.arch, shape=args.shape, batch=args.batch,
                         prompt_len=args.prompt_len, device=dev)
     step = make_prefill_step(res.cfg, device=dev)
-    batch = {"tokens": res.tokens}
+    batch = res.batch
     with torch.inference_mode():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -100,7 +100,7 @@ def main(argv=None):
         launches = (swa_attention.launches - launches[0],
                     ssd_chunked.launches - launches[1])
 
-    tokens = res.tokens.numel()
+    tokens = res.positions
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_ms = _union_us(spans) / 1e3
