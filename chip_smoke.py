@@ -25,16 +25,21 @@ raises and the script exits non-zero:
 4. check the served output against a CPU computation of the same GCN on the
    same inputs;
 5. hold the two banded SWA kernels against their plain version: the
-   wgmma kernel (bf16, D 64/128; the prefill path's) and the FMA kernel
-   (float32, and bf16 with D 256), each where ``swa_attention`` routes,
-   at the prefill path's shape (q (2, 32, 16384, 128), k/v (2, 8, 16384,
-   128), window 4096, read in place from (B, S, H, D) activations;
-   float32, then bf16) and at edge shapes (S/window (256,128), (384,128),
-   (512,256), (256,256), (128,128); D 64/128; GQA group 1/4/8; float32
-   and bf16; and D 256), with the same numbers; on the bf16 main-shape
-   input the wgmma kernel, the FMA kernel and the yardstick, PyTorch's
-   memory-efficient SDPA with the band as a mask, are timed, and the
-   wgmma kernel's registers, spills and shared memory are recorded;
+   wgmma kernel (bf16, D 64/128/256; the prefill paths') and the FMA
+   kernel (float32), each where ``swa_attention`` routes, at the prefill
+   path's shape (q (2, 32, 16384, 128), k/v (2, 8, 16384, 128), window
+   4096, read in place from (B, S, H, D) activations; float32, then bf16)
+   and at edge shapes (S/window (256,128), (384,128), (512,256),
+   (256,256), (128,128); D 64/128; GQA group 1/4/8; float32 and bf16; and
+   D 256 at (512,256), group 8), with the same numbers, and at D 256 in
+   bf16 on the wgmma kernel's 64-key tiles (S/window (128,128),
+   (256,128), (384,128), (512,256), (1024,128), (1024,512); group 1 and
+   4 of 2 KV heads, and 8 of 1, paligemma's MQA); on the bf16 main-shape
+   input a second call of the wgmma kernel must give the same bits, and
+   the wgmma kernel, the FMA kernel and the yardstick, PyTorch's
+   memory-efficient SDPA with the band as a mask, are timed; the wgmma
+   kernel's registers, spills and shared memory are recorded for each of
+   its instantiations (``<64>``, ``<128>``, ``<256>``);
 6. drive the SWA prefill path: qwen3-4b with sliding-window attention
    (window 4096) at full width and depth, 2 requests x 16,384 tokens,
    launch counters set to 0 just before and read just after (36 launches
@@ -177,10 +182,13 @@ raises and the script exits non-zero:
    model does not fit one card) through ``serve.decode``; (b)
    ``serve_prefill`` of paligemma-3b under long_500k, 2 x 16,384
    positions (256 seeded image-prefix embeddings + 16,128 text tokens;
-   18 launches of the FMA SWA kernel, the route of bf16 with D 256, and
-   none of any other), every kernel call held to the plain version at one
-   bf16 ulp, the FMA route timed at that shape with its bound and SDPA as
-   the yardstick; seamless-m4t-large-v2, 2 x 8,192 (source frames and
+   18 launches of the wgmma SWA kernel, the route of bf16 with D 256, and
+   none of any other, the FMA kernel's included), every kernel call held
+   to the plain version at one bf16 ulp in a rerun of the forward that
+   must give the served logits bit for bit, and the route at that shape
+   held, called twice for the same bits, and timed with its bound, the
+   FMA kernel, the plain version and SDPA as the yardstick;
+   seamless-m4t-large-v2, 2 x 8,192 (source frames and
    tokens), and deepseek-v2-236b at 3 layers, 2 x 4,096, both launching
    no kernel; two MoE calls on one input giving the same bits; (c) each
    MLA and each self- and cross-attention mixer's decode held to its
@@ -302,7 +310,7 @@ ZOO_DECODE = {"paligemma-3b": ["--arch", "paligemma-3b"],
               "seamless-m4t-large-v2": ["--arch", "seamless-m4t-large-v2"]}
 ZOO_MOE = {"arch": "deepseek-v2-236b", "n_layers": 3, "fp32_layers": 2}
 # (b) prefills: paligemma under long_500k (SWA 4096 with D 256 and MQA: the
-# FMA kernel, one launch a layer) over 256 image-prefix embeddings and
+# wgmma kernel, one launch a layer) over 256 image-prefix embeddings and
 # 16,128 text tokens; seamless over 8,192 source frames and tokens
 ZOO_PREFILL = {
     "paligemma-3b": {"shape": "long_500k", "batch": 2, "prompt_len": 16384},
@@ -474,10 +482,11 @@ def hold_swa(label, out, plain):
 def check_swa(label, q, k, v, window, *, time_it=False):
     """The SWA kernel that ``swa_attention`` routes this input to vs the
     plain version on the card; with ``time_it`` (a bf16 input, which the
-    wgmma kernel takes) also the FMA kernel on the same input, held to the
-    plain version too, and the times of both kernels, the plain version
-    and the library yardstick, with the bound. Returns a dict of the
-    numbers measured."""
+    wgmma kernel takes) also a second call of that kernel, which must give
+    the same bits, the FMA kernel on the same input, held to the plain
+    version too, and the times of both kernels, the plain version and the
+    library yardstick, with the bound. Returns a dict of the numbers
+    measured."""
     import torch
     from repro_torch.kernels import (swa, swa_attention, swa_attention_fma,
                                      swa_attention_plain)
@@ -498,6 +507,13 @@ def check_swa(label, q, k, v, window, *, time_it=False):
            "max_abs_err": err}
     if time_it:
         B, H, S, _ = q.shape
+        again = kernel(q, k, v, window=window, scale=scale)
+        torch.cuda.synchronize()
+        if not torch.equal(again, out):
+            raise AssertionError(f"{label}: two calls of the {route} kernel "
+                                 f"differ")
+        row["bit_repeatable"] = True
+        del again
         fma = swa_attention_fma(q, k, v, window=window, scale=scale)
         torch.cuda.synchronize()
         row["fma_max_abs_err"] = hold_swa(f"{label} (FMA kernel)", fma, plain)
@@ -1573,7 +1589,7 @@ def zoo_prefill(arch, counters, n_layers=None):
 def zoo_phase(gen, card, counters):
     """Phase 15: the moe, encdec and vlm families on the card (see the
     module docstring). Returns the row printed as ``{"zoo": ...}``, with
-    what the kernels line needs under "fma"."""
+    what the kernels line needs of the D-256 route under "swa_d256"."""
     import numpy as np
     import torch
     from repro_torch.configs import SHAPES, get_config
@@ -1602,8 +1618,8 @@ def zoo_phase(gen, card, counters):
         raise AssertionError(f"not the full paligemma-3b SWA config: {pcfg}")
     n = pcfg.n_layers
     if row["prefill"]["paligemma-3b"]["launches"] != {
-            "swa_attention": n, "swa_attention_fma": n}:
-        raise AssertionError(f"paligemma: expected {n} launches of the FMA "
+            "swa_attention": n, "swa_attention_wgmma": n}:
+        raise AssertionError(f"paligemma: expected {n} launches of the wgmma "
                              f"SWA kernel and no other, saw "
                              f"{row['prefill']['paligemma-3b']['launches']}")
     errs = []
@@ -1627,15 +1643,15 @@ def zoo_phase(gen, card, counters):
     base = [torch.randn((B, S, n, D), generator=gen, device=dev).to(
         torch.bfloat16) for n in (H, KV, KV)]
     q, k, v = (t.transpose(1, 2) for t in base)
-    fma_row = check_swa(f"paligemma prefill S={S} window={W} H={H} KV={KV} "
-                        f"D={D} bf16 (B,S,H,D) views", q, k, v, W,
-                        time_it=True)
-    if fma_row["kernel"] != "fma":
+    d256_row = check_swa(f"paligemma prefill S={S} window={W} H={H} "
+                         f"KV={KV} D={D} bf16 (B,S,H,D) views", q, k, v, W,
+                         time_it=True)
+    if d256_row["kernel"] != "wgmma":
         raise AssertionError("paligemma's SWA shape is not routed to the "
-                             "FMA kernel")
+                             "wgmma kernel")
     del q, k, v, base
-    row["fma"] = {"launches": n, "held_max_abs_err": max(errs),
-                  "shape": fma_row}
+    row["swa_d256"] = {"launches": n, "held_max_abs_err": max(errs),
+                       "shape": d256_row}
 
     sm, row["prefill"]["seamless-m4t-large-v2"] = zoo_prefill(
         "seamless-m4t-large-v2", counters)
@@ -1918,18 +1934,27 @@ def main():
         "dynamic_smem_bytes": {d_: swa.wgmma_smem_bytes(d_)
                                for d_ in swa.WGMMA_D}}
     print(json.dumps({"swa_attention_wgmma build": wgmma_build}), flush=True)
-    edges = [(s_, w_, d_, g_) for s_, w_ in ((256, 128), (384, 128),
-                                             (512, 256), (256, 256),
-                                             (128, 128))
-             for d_ in (64, 128) for g_ in (1, 4, 8)] + [(512, 256, 256, 8)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for s_, w_, d_, g_ in edges:
-            q = torch.randn((2, 2 * g_, s_, d_), generator=gen, device=dev,
-                            dtype=dtype)
-            k, v = (torch.randn((2, 2, s_, d_), generator=gen, device=dev,
-                                dtype=dtype) for _ in range(2))
-            swa_rows.append(check_swa(
-                f"S={s_} window={w_} D={d_} G={g_} {dtype}", q, k, v, w_))
+    edges = [(s_, w_, d_, g_, 2, dtype)
+             for dtype in (torch.float32, torch.bfloat16)
+             for s_, w_ in ((256, 128), (384, 128), (512, 256), (256, 256),
+                            (128, 128))
+             for d_ in (64, 128) for g_ in (1, 4, 8)]
+    edges += [(512, 256, 256, 8, 2, dtype)
+              for dtype in (torch.float32, torch.bfloat16)]
+    # D 256 in bf16, the wgmma kernel's 64-key tiles: G 8 with KV 1 is
+    # paligemma-3b's (and gemma-2b's) MQA
+    edges += [(s_, w_, 256, g_, kv_, torch.bfloat16)
+              for s_, w_ in ((128, 128), (256, 128), (384, 128), (512, 256),
+                             (1024, 128), (1024, 512))
+              for g_, kv_ in ((1, 2), (4, 2), (8, 1))]
+    for s_, w_, d_, g_, kv_, dtype in edges:
+        q = torch.randn((2, g_ * kv_, s_, d_), generator=gen, device=dev,
+                        dtype=dtype)
+        k, v = (torch.randn((2, kv_, s_, d_), generator=gen, device=dev,
+                            dtype=dtype) for _ in range(2))
+        swa_rows.append(check_swa(
+            f"S={s_} window={w_} D={d_} G={g_} KV={kv_} {dtype}", q, k, v,
+            w_))
     torch.cuda.empty_cache()
 
     # 6) SWA prefill path
@@ -1996,7 +2021,8 @@ def main():
     n0 = swa_attention_fma.launches
     with torch.inference_mode():
         kern = step32(params32, {"tokens": pre.tokens})
-        if swa_attention_fma.launches != n0 + cfg.n_layers:
+        fp32_fma_launches = swa_attention_fma.launches - n0
+        if fp32_fma_launches != cfg.n_layers:
             raise AssertionError("the float32 forward missed the FMA kernel")
         with mock.patch.object(ops, "swa_attention", swa_attention_plain):
             plain = step32(params32, {"tokens": pre.tokens})
@@ -2545,7 +2571,7 @@ def main():
           "the encoder-decoder of seamless-m4t, the vlm prefix of "
           "paligemma) in decode and prefill")
     zoo = zoo_phase(gen, card, kernels14)
-    pg_fma = zoo["fma"]["shape"]
+    pg = zoo["swa_d256"]["shape"]
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",
@@ -2566,33 +2592,43 @@ def main():
         "ms": oa["ms"], "plain_ms": oa["plain_ms"],
         "bound_ms": oa["bound_ms"], "bound_by": oa["bound_by"],
         "library_ms": oa_csr["library_ms"]}, {
+        # D 128 at qwen3-4b's shape; "d256_shape": paligemma-3b's
         "name": "swa_attention_wgmma", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention_wgmma.cu",
         "replaces": "src/repro/kernels/swa.py:81",
         "launches": wgmma_launches,
         "max_abs_err": max([r["max_abs_err"] for r in swa_rows
-                            if r["kernel"] == "wgmma"] + errs),
+                            if r["kernel"] == "wgmma"] + errs
+                           + [pg["max_abs_err"],
+                              zoo["swa_d256"]["held_max_abs_err"]]),
         "ms": main_swa["ms"], "plain_ms": main_swa["plain_ms"],
         "bound_ms": main_swa["bound_ms"], "bound_by": main_swa["bound_by"],
         "library_ms": main_swa["library_ms"],
         "ring_prefill_launches": ring["prefill_launches"][
-            "swa_attention_wgmma"]}, {
-        # its served path: paligemma-3b under long_500k (bf16, D 256)
+            "swa_attention_wgmma"],
+        "d256_shape": {
+            "q": pg["q"], "kv": pg["kv"], "window": pg["window"],
+            "launches": zoo["swa_d256"]["launches"], "ms": pg["ms"],
+            "plain_ms": pg["plain_ms"], "bound_ms": pg["bound_ms"],
+            "bound_by": pg["bound_by"],
+            "share_of_bound": pg["share_of_bound"],
+            "library_ms": pg["library_ms"], "fma_ms": pg["fma_ms"]}}, {
+        # its path: phase 7's float32 copy; timed as the comparison on the
+        # bf16 inputs at paligemma-3b's and qwen3's shapes (the wgmma
+        # kernel's)
         "name": "swa_attention_fma", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa.py:81",
-        "launches": zoo["fma"]["launches"],
+        "launches": fp32_fma_launches,
         "qwen3_prefill_launches": fma_launches,
         "max_abs_err": max([r["max_abs_err"] for r in swa_rows
                             if r["kernel"] == "fma"]
                            + [main_swa["fma_max_abs_err"],
-                              pg_fma["max_abs_err"],
-                              zoo["fma"]["held_max_abs_err"]]),
-        "ms": pg_fma["ms"], "plain_ms": pg_fma["plain_ms"],
-        "bound_ms": pg_fma["bound_ms"], "bound_by": pg_fma["bound_by"],
-        "library_ms": pg_fma["library_ms"], "library": pg_fma["library"],
-        "shape": {"q": pg_fma["q"], "kv": pg_fma["kv"],
-                  "window": pg_fma["window"]},
+                              pg["fma_max_abs_err"]]),
+        "ms": pg["fma_ms"], "plain_ms": pg["plain_ms"],
+        "bound_ms": pg["bound_ms"], "bound_by": pg["bound_by"],
+        "library_ms": pg["library_ms"], "library": pg["library"],
+        "shape": {"q": pg["q"], "kv": pg["kv"], "window": pg["window"]},
         "qwen3_shape": {"ms": main_swa["fma_ms"],
                         "plain_ms": main_swa["plain_ms"],
                         "bound_ms": main_swa["bound_ms"],

@@ -8,8 +8,8 @@
   * ``swa`` — banded sliding-window flash attention, the port of the TPU
     kernel ``repro/kernels/swa.py:swa_attention_pallas``: bf16 ``wgmma``
     with TMA-fed stages (CUDA C++, ``csrc/swa_attention_wgmma.cu``), the
-    prefill path's, and float32 FMA (CUDA C++, ``csrc/swa_attention.cu``)
-    for float32 and D 256
+    bf16 prefill paths' at D 64, 128 and 256, and float32 FMA (CUDA C++,
+    ``csrc/swa_attention.cu``) for float32
   * ``ssd`` — the Mamba2 SSD chunk scan, the port of the TPU kernel
     ``repro/kernels/ssd.py:ssd_chunked_pallas``: three chunk-parallel
     kernels on bf16 tensor cores (CUDA C++, ``csrc/ssd_chunk_tc.cu``), the

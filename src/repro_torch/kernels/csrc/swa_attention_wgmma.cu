@@ -3,9 +3,9 @@
 // shared-memory stages by a producer warp, two consumer warpgroups.
 //
 // Replaces the TPU kernel src/repro/kernels/swa.py:swa_attention_pallas
-// (body _swa_kernel) for bf16 inputs with D = 64 or 128; float32 inputs
-// and D = 256 stay on csrc/swa_attention.cu. For query row r and key c of
-// one (batch, head):
+// (body _swa_kernel) for bf16 inputs with D = 64, 128 or 256; float32
+// inputs stay on csrc/swa_attention.cu. For query row r and key c of one
+// (batch, head):
 //
 //     valid(r, c) = 0 <= r - c < window
 //     o[r] = sum_c softmax_c(scale * q[r] . k[c] | valid) v[c]
@@ -34,20 +34,24 @@
 // warpgroups 0 and 1 hold 64 rows each; warpgroup 2 is the producer, of
 // which one thread issues every TMA load (setmaxnreg gives the consumers
 // 240 registers and the producer 24). The producer loads the Q tile once,
-// then streams the BK = 128-key K and V tiles that hold any in-band key of
-// the CTA's rows, from max(0, q0 - window + 1) / BK to the diagonal tile,
-// into STAGES = 3 stages (Q 32 KB + 3 x 64 KB of K and V = 224 KB of
-// shared memory at D = 128; two stages ran slower on an H100) with full
-// barriers (TMA transaction bytes, one for K and one for V, so q.k starts
-// before V lands) and an empty barrier (one arrival per consumer warp).
-// Tiles are 64-column boxes with the 128-byte swizzle, as the wgmma
-// descriptors read them: a D = 128 row is two boxes. Per key tile a
-// consumer warpgroup runs S = Q K^T as D/16 wgmma m64n128k16 (A = Q, B =
-// K, both K-major from shared memory), the online softmax on the
-// accumulator layout (a row lives in the 4 threads of a quad: two
-// shuffles; the mask arithmetic only on the tiles that straddle the
-// diagonal or the window's far edge), and o += hi V + lo V as 2 BK/16
-// register-A wgmma (B = V, MN-major, the descriptor's transpose bit). The
+// then streams the BK-key K and V tiles that hold any in-band key of the
+// CTA's rows, from max(0, q0 - window + 1) / BK to the diagonal tile, into
+// a ring of STAGES stages with full barriers (TMA transaction bytes, one
+// for K and one for V, so q.k starts before V lands) and an empty barrier
+// (one arrival per consumer warp). At D = 64 and 128, BK = 128 and STAGES
+// = 3 (Q 32 KB + 3 x 64 KB of K and V = 224 KB of shared memory at D =
+// 128; two stages ran slower on an H100). At D = 256 a 128-key stage
+// alone is 128 KB, so BK = 64 and STAGES = 2: Q 64 KB + 2 x (32 + 32 KB)
+// = 192 KB. Tiles are 64-column boxes with the 128-byte swizzle, as the
+// wgmma descriptors read them: a D = 128 row is two boxes, a D = 256 row
+// four. Per key tile a consumer warpgroup runs S = Q K^T as D/16 wgmma
+// m64nBKk16 (A = Q, B = K, both K-major from shared memory), the online
+// softmax on the accumulator layout (a row lives in the 4 threads of a
+// quad: two shuffles; the mask arithmetic only on the tiles that straddle
+// the diagonal or the window's far edge), and o += hi V + lo V as 2 BK/16
+// register-A wgmma m64nDk16 (B = V, MN-major, the descriptor's transpose
+// bit). Each consumer thread holds o (D/2 floats), S (BK/2) and P's hi and
+// lo (BK/8 + BK/8 registers): 192 at D = 128 and at D = 256 alike. The
 // loop is software-pipelined: S of tile j and p.v of tile j - 1 are issued
 // together, and the softmax of tile j runs while the tensor cores do that
 // p.v; o takes on tile j's rescale factor after it. No atomics and no
@@ -60,9 +64,14 @@
 // S 16384, window 4096, D 128) the band holds 1.924 TFLOP of q.k and p.v
 // (1.946 ms at 989 TFLOP/s): operations, not the 0.67 GB of q, k, v and o
 // (0.200 ms). The split of P issues p.v twice: 2.886 TFLOP issued, 2.92 ms
-// at the dense bf16 rate. The softmax (one exp2 a score), the split of P
+// at the dense bf16 rate. At paligemma-3b's and gemma-2b's (B 2, H 8, KV
+// 1, S 16384, window 4096, D 256) the band holds 0.962 TFLOP (0.9728 ms,
+// operations; 1.443 TFLOP issued with the split P) against 0.30 GB of q,
+// k, v and o (0.090 ms). The softmax (one exp2 a score), the split of P
 // and the O rescale run on the CUDA cores; the pipeline and the second
-// consumer warpgroup keep the tensor cores busy meanwhile.
+// consumer warpgroup keep the tensor cores busy meanwhile. At D = 256 the
+// O rescale is D/2 = 128 multiplies a thread for every 64 keys, four times
+// D = 128's share of CUDA-core work per key.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -72,8 +81,6 @@
 namespace {
 
 constexpr int BQ = 128;             // query rows per CTA (two warpgroups)
-constexpr int BK = 128;             // keys per tile
-constexpr int STAGES = 3;           // K/V ring depth
 constexpr int NCONSUMER_WARPS = 8;
 constexpr int NTH = 384;            // 2 consumer warpgroups + 1 producer
 constexpr float NEG_INF = -1e30f;
@@ -86,11 +93,15 @@ struct Params {
   float c;                          // scale * log2(e)
 };
 
-// Shared memory: the Q tile, then STAGES x (K tile, V tile), then the
-// barriers. Each tile is D / 64 column halves of rows x 64 bf16 (128-byte
-// rows, 128-byte swizzle), the layout of one TMA box each.
+// Per head dim: BK keys a tile and a ring of STAGES K/V stages. Shared
+// memory: the Q tile, then STAGES x (K tile, V tile), then the barriers.
+// Each tile is D / 64 column halves of rows x 64 bf16 (128-byte rows,
+// 128-byte swizzle), the layout of one TMA box each. At D = 256 a 128-key
+// stage is 128 KB, so the tile is 64 keys and the ring two stages deep.
 template <int D>
 struct Smem {
+  static constexpr int BK = D == 256 ? 64 : 128;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
   static constexpr int HALVES = D / 64;
   static constexpr int Q_HALF = BQ * 128;          // bytes of one Q half
   static constexpr int KV_HALF = BK * 128;         // bytes of one K/V half
@@ -99,6 +110,7 @@ struct Smem {
   static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * TILE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES);
   static constexpr int ALLOC = BYTES + 1024;       // room to align to 1 KB
+  static_assert(ALLOC <= 232448, "over a CTA's 227 KB of shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -234,6 +246,27 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -287,6 +320,59 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---- the softmax on the accumulator layout -----------------------------
 // Thread (warp w of its warpgroup, lane) holds rows 16 w + lane / 4 (half
 // 0) and that + 8 (half 1) of the warpgroup's 64; register j of a 64 x N
@@ -300,7 +386,7 @@ __device__ __forceinline__ bool in_band(int rel, int window) {
 // One key tile: mask (MASK only), running max m (raw q.k units), s -> p,
 // l = l * alpha + sum p (per-thread part of the row sum); returns in
 // alpha the factor that o must take on before this tile's p.v adds to it.
-template <bool MASK>
+template <bool MASK, int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float c,
@@ -341,15 +427,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
 // The softmax of the key tile at k0 for a warpgroup whose rows start at
 // r0 (this thread's half-0 row: `row`), masked only where the tile
 // straddles the diagonal or the far edge of the window for some row.
+template <int BK>
 __device__ __forceinline__ void softmax_at(float (&s)[BK / 2], float (&m)[2],
                                            float (&l)[2], float (&alpha)[2],
                                            float c, int row, int r0, int k0,
                                            int window) {
   const int rel0 = row - (k0 + 2 * (threadIdx.x & 3));
   if (k0 + BK - 1 > r0 || r0 + 63 - k0 >= window)
-    softmax_tile<true>(s, m, l, alpha, c, rel0, window);
+    softmax_tile<true, BK>(s, m, l, alpha, c, rel0, window);
   else
-    softmax_tile<false>(s, m, l, alpha, c, rel0, window);
+    softmax_tile<false, BK>(s, m, l, alpha, c, rel0, window);
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
@@ -359,6 +446,7 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
 // P as register A operands of the p.v products, split in two bf16 parts:
 // hi = bf16(p), lo = bf16(p - hi). The accumulator layout of S is the A
 // layout of P: k-step kk's four registers pack s[8 kk + 2 i], s[.. + 1].
+template <int BK>
 __device__ __forceinline__ void split_p(const float (&s)[BK / 2],
                                         uint32_t (&hi)[BK / 16][4],
                                         uint32_t (&lo)[BK / 16][4]) {
@@ -376,7 +464,7 @@ __device__ __forceinline__ void split_p(const float (&s)[BK / 2],
 
 // S = Q K^T (64 x BK, raw float32) of this warpgroup's Q rows at q_addr
 // and the K tile at k_addr, issued and committed as one group.
-template <int D>
+template <int D, int BK = Smem<D>::BK>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_addr,
                                          uint32_t k_addr) {
 #pragma unroll
@@ -392,7 +480,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_addr,
 
 // o += hi V + lo V with the V tile at v_addr, issued and committed as one
 // group.
-template <int D>
+template <int D, int BK = Smem<D>::BK>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&hi)[BK / 16][4],
                                          const uint32_t (&lo)[BK / 16][4],
@@ -415,6 +503,7 @@ swa_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tv,
                            const Params p) {
   using L = Smem<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -501,8 +590,8 @@ swa_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     issue_qk<D>(s, sq_wg, sk(stage));
     wg_wait<0>();
     fence_regs(s);
-    softmax_at(s, m, l, alpha, p.c, row, r0, kt_first * BK, p.window);
-    split_p(s, hi, lo);                           // o = 0: alpha unused
+    softmax_at<BK>(s, m, l, alpha, p.c, row, r0, kt_first * BK, p.window);
+    split_p<BK>(s, hi, lo);                       // o = 0: alpha unused
     for (int kt = kt_first + 1; kt <= kt_last; ++kt) {
       const int prev = stage;
       const uint32_t prev_phase = phase;
@@ -520,13 +609,13 @@ swa_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       issue_pv<D>(o, hi, lo, sk(prev) + L::TILE_BYTES);
       wg_wait<1>();                               // S of tile kt is in
       fence_regs(s);
-      softmax_at(s, m, l, alpha, p.c, row, r0, kt * BK, p.window);
+      softmax_at<BK>(s, m, l, alpha, p.c, row, r0, kt * BK, p.window);
       wg_wait<0>();                               // p.v of tile kt - 1 too
       fence_regs(o);
       if (lane == 0) mbar_arrive(empty(prev));
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
-      split_p(s, hi, lo);
+      split_p<BK>(s, hi, lo);
     }
     mbar_wait(full_v(stage), phase);
     fence_regs(o);
@@ -605,9 +694,21 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The TMA maps (K and V in boxes of the D's key tile) and the launch, or
+// -(1000 + CUresult) when the driver refuses a map.
 template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           const Params& p, int B, int H, cudaStream_t stream) {
+int launch(EncodeTiled enc, const void* q, const void* k, const void* v,
+           const int64_t (&st)[9], const Params& p, int B, int H, int S,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(enc, &tq, q, D, S, H, B, st[0], st[1], st[2], BQ);
+  if (r == CUDA_SUCCESS)
+    r = make_map(enc, &tk, k, D, S, p.KV, B, st[3], st[4], st[5],
+                 Smem<D>::BK);
+  if (r == CUDA_SUCCESS)
+    r = make_map(enc, &tv, v, D, S, p.KV, B, st[6], st[7], st[8],
+                 Smem<D>::BK);
+  if (r != CUDA_SUCCESS) return -(1000 + static_cast<int>(r));
   auto kern = swa_attention_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::ALLOC);
@@ -622,9 +723,9 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 
 // C entry point, bound with ctypes. bf16 q (B, H, S, D), k and v
 // (B, KV, S, D), o like q; strides in elements, the last dimension
-// contiguous, the others and every base address 16-byte multiples; D 64 or
-// 128; S a multiple of 128; H a multiple of KV. Returns 0 on success, a
-// cudaError_t for a refused launch, or -1 when the driver has no
+// contiguous, the others and every base address 16-byte multiples; D 64,
+// 128 or 256; S a multiple of 128; H a multiple of KV. Returns 0 on
+// success, a cudaError_t for a refused launch, or -1 when the driver has no
 // cuTensorMapEncodeTiled and -(1000 + CUresult) when it refuses a map. The
 // launch is asynchronous, on `stream`.
 extern "C" int swa_attention_wgmma_fwd(const void* q, const void* k,
@@ -636,16 +737,12 @@ extern "C" int swa_attention_wgmma_fwd(const void* q, const void* k,
                                        int64_t vs, int64_t ob, int64_t oh,
                                        int64_t os, void* stream) {
   if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || S % BQ != 0 ||
-      window <= 0 || (D != 64 && D != 128) ||
+      window <= 0 || (D != 64 && D != 128 && D != 256) ||
       static_cast<int64_t>(B) * H * (S / BQ) > 0x7fffffff)
     return cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -1;
-  CUtensorMap tq, tk, tv;
-  CUresult r = make_map(enc, &tq, q, D, S, H, B, qb, qh, qs, BQ);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, D, S, KV, B, kb, kh, ks, BK);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, D, S, KV, B, vb, vh, vs, BK);
-  if (r != CUDA_SUCCESS) return -(1000 + static_cast<int>(r));
+  const int64_t st[9] = {qb, qh, qs, kb, kh, ks, vb, vh, vs};
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.ob = ob;
@@ -658,12 +755,16 @@ extern "C" int swa_attention_wgmma_fwd(const void* q, const void* k,
   p.window = window;
   p.c = static_cast<float>(static_cast<double>(scale) * LOG2E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch<64>(tq, tk, tv, p, B, H, s)
-                 : launch<128>(tq, tk, tv, p, B, H, s);
+  return D == 64    ? launch<64>(enc, q, k, v, st, p, B, H, S, s)
+         : D == 128 ? launch<128>(enc, q, k, v, st, p, B, H, S, s)
+                    : launch<256>(enc, q, k, v, st, p, B, H, S, s);
 }
 
 // Dynamic shared memory a CTA of the kernel takes for head dim D (bytes),
 // or -1 for a D it does not take.
 extern "C" int swa_attention_wgmma_smem(int D) {
-  return D == 64 ? Smem<64>::ALLOC : D == 128 ? Smem<128>::ALLOC : -1;
+  return D == 64    ? Smem<64>::ALLOC
+         : D == 128 ? Smem<128>::ALLOC
+         : D == 256 ? Smem<256>::ALLOC
+                    : -1;
 }

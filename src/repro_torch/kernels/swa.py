@@ -7,10 +7,13 @@ online softmax over them (the SWAT analogue). Two CUDA kernels compute it
 on the card:
 
   * ``swa_attention_wgmma`` (``csrc/swa_attention_wgmma.cu``): bf16 with
-    D 64 or 128, both products on bf16 ``wgmma``, K/V tiles fed by TMA
-    into a ring of shared-memory stages; the qwen3-4b prefill path's;
-  * ``swa_attention_fma`` (``csrc/swa_attention.cu``): float32, and bf16
-    with D 256, on float32 FMA.
+    D 64, 128 or 256, both products on bf16 ``wgmma``, K/V tiles fed by
+    TMA into a ring of shared-memory stages (128-key tiles in three stages
+    at D 64 and 128, 64-key tiles in two at D 256); the qwen3-4b prefill
+    path's (D 128) and paligemma-3b's and gemma-2b's under long_500k (D
+    256, MQA);
+  * ``swa_attention_fma`` (``csrc/swa_attention.cu``): float32 on float32
+    FMA (it also takes bf16, which ``swa_attention`` never sends it).
 
 ``swa_attention`` takes the kernel that ``_route`` names on a CUDA tensor
 and ``swa_attention_plain`` on a CPU tensor; it never falls back from one
@@ -36,7 +39,7 @@ from . import _build
 
 NEG_INF = -1e30
 BLK = 128                        # the TPU kernel's block: S, window % BLK == 0
-WGMMA_D = (64, 128)              # bf16 head dims of the wgmma kernel
+WGMMA_D = (64, 128, 256)         # bf16 head dims of the wgmma kernel
 FMA_D = (64, 128, 256)           # head dims of the FMA kernel
 PLAIN_CHUNK_BYTES = 256 << 20    # bound on one piece of the plain scores
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -111,15 +114,15 @@ def swa_attention_plain(q, k, v, *, window: int, scale: float,
 
 def _route(dtype, D: int) -> str:
     """The kernel that takes a CUDA input of this dtype and head dim:
-    ``"wgmma"`` (bf16, D 64 or 128) or ``"fma"`` (float32 with D 64, 128
-    or 256, and bf16 with D 256). Raises on what neither takes."""
+    ``"wgmma"`` (bf16, D 64, 128 or 256) or ``"fma"`` (float32 with D 64,
+    128 or 256). Raises on what neither takes."""
     if dtype == torch.bfloat16 and D in WGMMA_D:
         return "wgmma"
-    if dtype in _DTYPES and D in FMA_D:
+    if dtype == torch.float32 and D in FMA_D:
         return "fma"
     raise ValueError(f"no SWA kernel takes {dtype} with D={D}: the wgmma "
                      f"kernel takes bf16 with D in {WGMMA_D}, the FMA kernel "
-                     f"float32 or bf16 with D in {FMA_D}")
+                     f"float32 with D in {FMA_D}")
 
 
 @functools.cache
@@ -187,7 +190,7 @@ def _strides(q, k, v, out):
 
 
 def swa_attention_wgmma(q, k, v, *, window: int, scale: float):
-    """The wgmma kernel on bf16 CUDA tensors with D 64 or 128, on the
+    """The wgmma kernel on bf16 CUDA tensors with D 64, 128 or 256, on the
     current stream; raises on anything else."""
     out = _cuda_args("swa_attention_wgmma", (torch.bfloat16,), WGMMA_D,
                      q, k, v, window)
@@ -212,7 +215,7 @@ def swa_attention_wgmma(q, k, v, *, window: int, scale: float):
 def swa_attention_fma(q, k, v, *, window: int, scale: float):
     """The FMA kernel on float32 or bf16 CUDA tensors with D 64, 128 or 256,
     on the current stream; raises on anything else. ``swa_attention``
-    routes bf16 with D 64 or 128 to the wgmma kernel instead."""
+    routes bf16 to the wgmma kernel instead."""
     out = _cuda_args("swa_attention_fma", tuple(_DTYPES), FMA_D, q, k, v,
                      window)
     B, H, S, D = q.shape

@@ -9,8 +9,9 @@ their plain version on the card (marked ``cuda``) at ``chip_smoke.py``'s
 gate, ``KERNEL_TOL``: float32 2e-5, bfloat16 one bf16 ulp (atol 1e-5, rtol
 2**-7); each side rounds a float32 result once, and the two differ only
 in sum order and, for the wgmma kernel, in its two-part bf16 P.
-The wgmma kernel's arithmetic (bf16 products, P split in two bf16 parts)
-is emulated on the CPU and held to the same gate.
+The wgmma kernel's arithmetic (bf16 products, P split in two bf16 parts,
+its key tile at each head dim) is emulated on the CPU and held to the same
+gate.
 """
 import types
 
@@ -25,6 +26,8 @@ from repro_torch.kernels import (ref, swa, swa_attention, swa_attention_fma,
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 KERNEL_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2 ** -7)}
+# keys a tile of the wgmma kernel at each head dim (csrc Smem<D>::BK)
+WGMMA_BK = {64: 128, 128: 128, 256: 64}
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +70,7 @@ def _np(x):
 # plain version vs the Pallas kernel
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("S,window", [(256, 128), (512, 256), (384, 128)])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_plain_matches_pallas_shapes(jref, S, window, D):
     arrays = _qkv(S + D, 1, 2, 1, S, D)
     exp = jref.pallas(*_to_jax(jref, arrays), window=window,
@@ -213,8 +216,9 @@ def test_kernel_entries_raise_on_a_window_off_the_tile(fn):
 def _emulate_wgmma_kernel(q, k, v, *, window, scale, split=True, bq=128,
                           bk=128):
     """csrc/swa_attention_wgmma.cu's arithmetic in torch: per 128-row query
-    tile, an online softmax over the 128-key tiles that hold an in-band
-    key; q.k on the raw bf16 q and k (exact products, float32 sums), the
+    tile, an online softmax over the ``bk``-key tiles that hold an in-band
+    key (``WGMMA_BK``: 128 at D 64 and 128, 64 at D 256); q.k on the raw
+    bf16 q and k (exact products, float32 sums), the
     scale folded with log2(e) into exp2 after the product; P split into
     hi = bf16(p) and lo = bf16(p - hi) (``split``; else rounded once) and
     p.v = hi V + lo V in float32; l summed from the float32 p; the output
@@ -261,13 +265,28 @@ def _gate_failures(out, plain):
                                rtol=rtol)).sum())
 
 
-@pytest.mark.parametrize("S,window,D,G,seed", [
-    (512, 128, 64, 1, 0), (512, 256, 128, 4, 1), (1024, 256, 64, 4, 2),
-    (1024, 512, 128, 1, 3), (2048, 512, 128, 4, 4), (2048, 128, 64, 1, 5)])
-def test_wgmma_numerics_meet_the_one_ulp_gate(S, window, D, G, seed):
-    """The design's arithmetic holds the plain version to one bf16 ulp."""
-    q, k, v = _to_torch(_qkv(seed, 1, 2 * G, 2, S, D), torch.bfloat16)
-    emu = _emulate_wgmma_kernel(q, k, v, window=window, scale=D ** -0.5)
+def _gate_case(S, window, D, G, seed, KV=2):
+    """A case of the one-ulp gate: H = G * KV query heads; the id names KV
+    only where it is not 2."""
+    kv = "" if KV == 2 else f"-KV{KV}"
+    return pytest.param(S, window, D, G, KV, seed,
+                        id=f"{S}-{window}-{D}-{G}-{seed}{kv}")
+
+
+@pytest.mark.parametrize("S,window,D,G,KV,seed", [
+    _gate_case(512, 128, 64, 1, 0), _gate_case(512, 256, 128, 4, 1),
+    _gate_case(1024, 256, 64, 4, 2), _gate_case(1024, 512, 128, 1, 3),
+    _gate_case(2048, 512, 128, 4, 4), _gate_case(2048, 128, 64, 1, 5),
+    # D 256 on 64-key tiles; G 8 with KV 1 is paligemma-3b's MQA
+    _gate_case(256, 128, 256, 1, 6), _gate_case(512, 256, 256, 8, 7, KV=1),
+    _gate_case(1024, 128, 256, 8, 8, KV=1), _gate_case(1024, 256, 256, 1, 9),
+    _gate_case(768, 256, 256, 4, 10)])
+def test_wgmma_numerics_meet_the_one_ulp_gate(S, window, D, G, KV, seed):
+    """The design's arithmetic, on its key tile at this head dim, holds the
+    plain version to one bf16 ulp."""
+    q, k, v = _to_torch(_qkv(seed, 1, G * KV, KV, S, D), torch.bfloat16)
+    emu = _emulate_wgmma_kernel(q, k, v, window=window, scale=D ** -0.5,
+                                bk=WGMMA_BK[D])
     plain = swa_attention_plain(q, k, v, window=window, scale=D ** -0.5)
     assert emu.dtype == torch.bfloat16
     assert _gate_failures(emu, plain) == 0
@@ -287,7 +306,7 @@ def test_p_rounded_once_to_bf16_fails_the_gate():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "fma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
     (torch.bfloat16, 32, None), (torch.float32, 96, None),
     (torch.float16, 128, None)])
@@ -301,7 +320,7 @@ def test_route_names_the_kernel_or_raises(dtype, D, route):
 
 @pytest.mark.parametrize("fn,dtype,D", [
     (swa_attention_wgmma, torch.float32, 128),
-    (swa_attention_wgmma, torch.bfloat16, 256),
+    (swa_attention_wgmma, torch.bfloat16, 96),
     (swa_attention_fma, torch.bfloat16, 96)])
 def test_kernel_entries_raise_on_what_their_kernel_does_not_take(fn, dtype,
                                                                  D):
@@ -331,15 +350,18 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,window,D,G", [
-    (256, 128, 64, 1), (384, 128, 128, 4), (512, 256, 128, 8),
-    (256, 256, 64, 4), (1024, 256, 256, 2), (128, 128, 128, 1),
-    (128, 128, 64, 8), (512, 256, 64, 4), (1024, 512, 128, 1)])
-def test_cuda_kernel_matches_plain(cuda, dtype, S, window, D, G):
-    """The routed kernel (wgmma for bf16 with D 64/128, FMA otherwise) at
-    the one-ulp gate; the model layout read in place gives the same
-    output bit for bit."""
-    q, k, v = _to_torch(_qkv(S + D + G, 2, 2 * G, 2, S, D), dtype, cuda)
+@pytest.mark.parametrize("S,window,D,G,KV", [
+    (256, 128, 64, 1, 2), (384, 128, 128, 4, 2), (512, 256, 128, 8, 2),
+    (256, 256, 64, 4, 2), (1024, 256, 256, 2, 2), (128, 128, 128, 1, 2),
+    (128, 128, 64, 8, 2), (512, 256, 64, 4, 2), (1024, 512, 128, 1, 2),
+    # D 256 (wgmma on 64-key tiles in bf16); G 8 with KV 1 is paligemma's
+    (128, 128, 256, 1, 2), (256, 128, 256, 8, 1), (512, 256, 256, 4, 2),
+    (1024, 512, 256, 8, 1), (1024, 128, 256, 1, 1)])
+def test_cuda_kernel_matches_plain(cuda, dtype, S, window, D, G, KV):
+    """The routed kernel (wgmma for bf16, FMA for float32) at the one-ulp
+    gate; a second call gives the same bits, and the model layout read in
+    place gives the same output bit for bit."""
+    q, k, v = _to_torch(_qkv(S + D + G, 2, G * KV, KV, S, D), dtype, cuda)
     kernel = swa._KERNELS[swa._route(dtype, D)]
     before = swa_attention.launches, kernel.launches
     out = swa_attention(q, k, v, window=window, scale=D ** -0.5)
@@ -349,6 +371,8 @@ def test_cuda_kernel_matches_plain(cuda, dtype, S, window, D, G):
     plain = swa_attention_plain(q, k, v, window=window, scale=D ** -0.5)
     atol, rtol = KERNEL_TOL[dtype]
     torch.testing.assert_close(out, plain, atol=atol, rtol=rtol)
+    assert torch.equal(out, swa_attention(q, k, v, window=window,
+                                          scale=D ** -0.5))
     # the model layout: (B, S, H, D) views read in place
     t = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
     op = swa_attention_op(*t, window=window, scale=D ** -0.5)
@@ -357,10 +381,11 @@ def test_cuda_kernel_matches_plain(cuda, dtype, S, window, D, G):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,window,D,G", [
-    (256, 128, 64, 1), (384, 128, 128, 4), (512, 256, 128, 8)])
+    (256, 128, 64, 1), (384, 128, 128, 4), (512, 256, 128, 8),
+    (512, 256, 256, 4)])
 def test_cuda_fma_kernel_matches_plain_in_bf16(cuda, S, window, D, G):
     """The FMA kernel on the bf16 inputs that the wgmma kernel takes on the
-    path (``chip_smoke.py`` times both on one input)."""
+    paths (``chip_smoke.py`` times both on one input, at D 128 and 256)."""
     q, k, v = _to_torch(_qkv(S + G, 1, 2 * G, 2, S, D), torch.bfloat16, cuda)
     out = swa_attention_fma(q, k, v, window=window, scale=D ** -0.5)
     plain = swa_attention_plain(q, k, v, window=window, scale=D ** -0.5)
