@@ -200,6 +200,32 @@ raises and the script exits non-zero:
    clear. It prints a ``{"zoo": {...}}`` line with the card's name and
    power limit.
 
+16. drive the training path (``launch/train.py``'s loop: ``lm_loss``, the
+   train step, AdamW) with B2 forward and its backward kernel
+   (``csrc/swa_attention_bwd.cu``: row statistics, dk/dv, dq): (a) before
+   any model is resident, the backward's three launches against
+   ``swa_attention_bwd_plain`` at edge shapes (float32 and bf16; S 256 to
+   1024; window 128, 256 and S - 128; D 64/128/256; G 1/4/8), at 1 x 8,192
+   in float32 and at the path's shape (q (2, 32, 16384, 128), k/v (2, 8,
+   16384, 128), window 4096, bf16, read in place from (B, S, H, D) views):
+   float32 gradients within 1e-4 of their largest, bf16 at one ulp, the
+   row statistics within 1e-5, two calls the same bits; at the path's
+   shape each launch, the whole backward, the plain version and SDPA's
+   backward with the band as a mask are timed beside the bounds, and the
+   kernels' registers, spills and shared memory are recorded; (b) a
+   float32 copy of qwen3-4b-swa4096 at full width, 2 layers, 1 x 8,192
+   tokens, remat on: ``lm_loss`` and every gradient through the kernels
+   (the FMA forward, twice a layer, and the backward) against the same
+   model through the plain versions (the loss within 1e-5 relative, each
+   gradient within 1e-4 of its leaf's largest); (c) qwen3-4b-swa4096 at
+   full width and depth (36 layers, bf16 parameters, float32 AdamW state),
+   2 x 16,384 tokens, 3 steps, launch counters set to 0 just before and
+   read just after (a step: 72 launches of the wgmma kernel, 36 of each
+   backward launch, 0 of the FMA kernel; loss and grad norm finite),
+   printing ms a step, tok/s and peak memory; (d)
+   ``examples/train_e2e_torch.py --preset small``, whose restart replays
+   the first run's losses bit for bit (``restart replay exact``).
+
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -320,6 +346,34 @@ ZOO_PREFILL = {
                          "prompt_len": 4096}}
 # (c) decode vs prefill of 2 x 256 tokens
 ZOO_RECUR = {"batch": 2, "prompt_len": 256}
+
+# phase 16: the training path. (a) the B2 backward kernel against its plain
+# version: edge shapes (S 256-1024; window 128, 256 and S - 128; D
+# 64/128/256; G 1/4/8) in float32 and bf16, then the path's shape; gates:
+# float32 each of dq, dk, dv within 1e-4 of its largest plain element (sum
+# order over up to 8 x 4,096 rows), bf16 one ulp of the plain float32
+# backward rounded once (SWA_TOL); the row statistics (lse, delta) within
+# 1e-5 of their largest; two calls the same bits
+BWD_F32_SHARE = 1e-4
+STATS_SHARE = 1e-5
+BWD_EDGES = [(s_, w_, d_, g_, kv_)
+             for s_, w_ in ((256, 128), (512, 256), (1024, 128), (1024, 896))
+             for d_ in (64, 128, 256)
+             for g_, kv_ in ((1, 2), (4, 2), (8, 1))]
+# (b) a float32 copy of qwen3-4b-swa4096 at full width, depth cut to 2
+# layers, 1 x 8,192 tokens, remat on: lm_loss and every gradient through
+# the kernels (FMA forward, the backward kernel) against the same model
+# through the plain versions (the loss within 1e-5 relative, each
+# parameter's gradient within 1e-4 of that leaf's largest element)
+TRAIN_FP32 = {"n_layers": 2, "batch": 1, "seq": 8192}
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_SHARE = 1e-4
+# (c) qwen3-4b-swa4096 at full width and depth (bf16 params, float32 AdamW
+# state), 2 x 16,384 tokens (cell 2's prefill tokens; train_4k's global
+# batch of 256 x 4,096 cut to what one card holds), 3 steps through
+# launch/train.py's loop; (d) examples/train_e2e_torch.py --preset small
+TRAIN = {"arch": "qwen3-4b", "shape": "long_500k", "batch": 2, "seq": 16384,
+         "steps": 3}
 
 
 def phase(name):
@@ -569,6 +623,366 @@ def sdpa_yardstick(q, k, v, window, scale, out):
     del kr, vr, bias, lib
     return {"library_ms": ms, "library": "SDPA memory-efficient, band mask",
             "library_max_abs_err": err}
+
+
+def swa_bwd_bound(B, H, KV, S, D, window, esize, products, stats=False,
+                  grads=()):
+    """Least time for ``products`` band products of the backward on these
+    shapes (each 2 * D flops a pair, phase 5's counting, at the dense bf16
+    tensor-core rate), against the bytes: q, o, do (stats) or q, do, k, v,
+    lse and delta read once, and the named gradients (or lse and delta)
+    written once."""
+    w = min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    flops = 2.0 * D * pairs * B * H * products
+    qsz, kvsz, row = B * H * S * D * esize, B * KV * S * D * esize, B * H * S * 4
+    if stats:
+        nbytes = 3 * qsz + kvsz + 2 * row          # q, o, do, k; lse, delta
+    else:
+        nbytes = 2 * qsz + 2 * kvsz + 2 * row      # q, do, k, v, lse, delta
+        nbytes += sum(qsz if g == "dq" else kvsz for g in grads)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def bwd_ptxas(log):
+    """Registers, spills and stack of each instantiation of the three
+    backward kernels in an ``nvcc -Xptxas -v`` log, keyed
+    ``kernel<dtype, D>``."""
+    import re
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            k = re.search(r"swa_bwd_(stats|dkdv|dq)_kernel", m.group(1))
+            d = re.search(r"Li(\d+)E", m.group(1))
+            if k and d:
+                t = "bf16" if "bfloat16" in m.group(1) else "f32"
+                name = f"swa_bwd_{k.group(1)}_kernel<{t}, {d.group(1)}>"
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            info.setdefault(name, {})["registers"] = int(m.group(1))
+        elif name and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", line)):
+            info.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+    return info
+
+
+def share_err(got, exp):
+    """max |got - exp| and its share of max |exp|."""
+    err = float((got.float() - exp.float()).abs().max())
+    return err, err / max(float(exp.float().abs().max()), 1e-30)
+
+
+def check_swa_bwd(label, q, k, v, window, gen, *, time_it=False):
+    """The backward kernel's three entries vs the plain backward on the card
+    for one input (o from the routed forward kernel, do a seeded normal
+    draw): stats vs ``swa_attention_bwd_stats_plain`` within STATS_SHARE of
+    the largest, dq, dk, dv within BWD_F32_SHARE of the largest in float32
+    and at one ulp (SWA_TOL) in bf16; a second call the same bits. With
+    ``time_it`` the three entries, the whole backward, the plain version
+    and the library yardstick are timed, with the bounds. Returns a dict
+    of the numbers measured."""
+    import torch
+    from repro_torch.kernels import (swa, swa_attention, swa_attention_bwd,
+                                     swa_attention_bwd_dkdv,
+                                     swa_attention_bwd_dq,
+                                     swa_attention_bwd_plain,
+                                     swa_attention_bwd_stats,
+                                     swa_attention_bwd_stats_plain)
+    B, H, S, D = q.shape
+    scale = D ** -0.5
+    kw = {"window": window, "scale": scale}
+    o = swa_attention(q, k, v, **kw)
+    do = torch.randn(q.shape, generator=gen, device=q.device,
+                     dtype=q.dtype)
+    entries = (swa_attention_bwd_stats, swa_attention_bwd_dkdv,
+               swa_attention_bwd_dq)
+    n0 = [f.launches for f in entries]
+    lse, delta = swa_attention_bwd_stats(q, k, v, o, do, **kw)
+    got = swa_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    if [f.launches - n for f, n in zip(entries, n0)] != [2, 1, 1]:
+        raise AssertionError(f"{label}: the backward did not launch its "
+                             f"three kernels once each")
+    plse, pdelta = swa_attention_bwd_stats_plain(q, k, o, do, **kw)
+    exp = swa_attention_bwd_plain(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    row = {"label": label, "q": list(q.shape), "kv": list(k.shape),
+           "window": window, "dtype": str(q.dtype)}
+    for name, a, b in (("lse", lse, plse), ("delta", delta, pdelta)):
+        err, share = share_err(a, b)
+        if not torch.isfinite(a).all() or share > STATS_SHARE:
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 f"stage by {share:.3e} of its largest")
+        row[f"{name}_max_abs_err"] = err
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {name} is not finite")
+        err, share = share_err(a, b)
+        if q.dtype == torch.float32:
+            if share > BWD_F32_SHARE:
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     f"plain backward by {share:.3e} of its "
+                                     f"largest (limit {BWD_F32_SHARE})")
+        else:
+            atol, rtol = SWA_TOL["bfloat16"]
+            torch.testing.assert_close(a, b, atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{label} {name}: {m}")
+        row[f"{name}_max_abs_err"], row[f"{name}_share"] = err, share
+    again = swa_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two calls of the backward differ")
+    row["bit_repeatable"] = True
+    del got, exp, again
+    if time_it:
+        KV = k.shape[1]
+        es = q.element_size()
+        row["ms"] = time_ms(lambda: swa_attention_bwd(q, k, v, o, do, **kw),
+                            10)
+        row["stats_ms"] = time_ms(
+            lambda: swa_attention_bwd_stats(q, k, v, o, do, **kw), 10)
+        row["dkdv_ms"] = time_ms(lambda: swa_attention_bwd_dkdv(
+            q, k, v, o, do, lse, delta, **kw), 10)
+        row["dq_ms"] = time_ms(lambda: swa_attention_bwd_dq(
+            q, k, v, o, do, lse, delta, **kw), 10)
+        row["plain_ms"] = time_ms(
+            lambda: swa_attention_bwd_plain(q, k, v, o, do, **kw), 3)
+        row["stats_plain_ms"] = time_ms(
+            lambda: swa_attention_bwd_stats_plain(q, k, o, do, **kw), 3)
+        # the backward: five band products (s recomputed, dp, dv, dq, dk)
+        row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
+            swa_bwd_bound(B, H, KV, S, D, window, es, 5,
+                          grads=("dq", "dk", "dv"))
+        for part, prods, kwb in (("stats", 1, {"stats": True}),
+                                 ("dkdv", 4, {"grads": ("dk", "dv")}),
+                                 ("dq", 3, {"grads": ("dq",)})):
+            row[f"{part}_bound_ms"], row[f"{part}_bound_by"], _, _ = \
+                swa_bwd_bound(B, H, KV, S, D, window, es, prods, **kwb)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
+        row.update(sdpa_bwd_yardstick(q, k, v, do, window, scale))
+    print(json.dumps(row), flush=True)
+    del o, do, lse, delta
+    torch.cuda.synchronize()
+    return row
+
+
+def sdpa_bwd_yardstick(q, k, v, do, window, scale):
+    """One library call for the same gradients: the backward of PyTorch's
+    memory-efficient scaled_dot_product_attention with the band as a
+    broadcast (S, S) additive mask, K/V repeated to H heads (it computes
+    every (row, key) pair). Only the backward is timed. Used nowhere in the
+    port."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    S, G = q.shape[2], q.shape[1] // k.shape[1]
+    qq = q.detach().clone().requires_grad_()
+    kr, vr = (t.repeat_interleave(G, dim=1).requires_grad_() for t in (k, v))
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    bias = torch.zeros((S, S), dtype=q.dtype, device=q.device).masked_fill(
+        (rel < 0) | (rel >= window), float("-inf"))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(qq, kr, vr, attn_mask=bias,
+                                             scale=scale)
+    grads = torch.autograd.grad(out, (qq, kr, vr), do, retain_graph=True)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: torch.autograd.grad(out, (qq, kr, vr), do,
+                                             retain_graph=True), 10)
+    del out, grads, qq, kr, vr, bias
+    return {"library_ms": ms,
+            "library": "SDPA memory-efficient backward, band mask"}
+
+
+def train_grads(cfg, params, batch):
+    """(loss, {path: gradient}) of ``lm_loss`` on the card."""
+    from repro_torch.models import lm_loss
+    from repro_torch.models.common import tree_leaves
+    leaves = [t for _, t in tree_leaves(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+        t.grad = None
+    loss = lm_loss(params, batch, cfg)
+    loss.backward()
+    grads = {p: t.grad for p, t in tree_leaves(params)}
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def train_phase(gen, card, log):
+    """Phase 16: the training path (see the module docstring). Returns a
+    dict of what it measured."""
+    import contextlib
+    import io
+    import runpy
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import (ops, swa, swa_attention_bwd_plain,
+                                     swa_attention_plain)
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import effective_config
+    from repro_torch.models import init_params, model_decls
+    dev = torch.device("cuda", 0)
+    out = {"card": card}
+
+    # (a) the backward kernel, before any model is resident
+    t0 = time.perf_counter()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for s_, w_, d_, g_, kv_ in BWD_EDGES:
+            q = torch.randn((2, g_ * kv_, s_, d_), generator=gen, device=dev,
+                            dtype=dtype)
+            k, v = (torch.randn((2, kv_, s_, d_), generator=gen, device=dev,
+                                dtype=dtype) for _ in range(2))
+            rows.append(check_swa_bwd(
+                f"S={s_} window={w_} D={d_} G={g_} KV={kv_} {dtype}", q, k,
+                v, w_, gen))
+    B, S, H, KV, D, W = 2, 16384, 32, 8, 128, 4096
+    for b_, s_, dtype, timed in ((1, 8192, torch.float32, False),
+                                 (B, S, torch.bfloat16, True)):
+        q, k, v = (torch.randn((b_, s_, n, D), generator=gen, device=dev,
+                               dtype=dtype).transpose(1, 2)
+                   for n in (H, KV, KV))
+        rows.append(check_swa_bwd(
+            f"path S={s_} window={W} {dtype} (B,S,H,D) views", q, k, v, W,
+            gen, time_it=timed))
+        del q, k, v
+    torch.cuda.empty_cache()
+    out["bwd"] = rows[-1]
+    out["bwd_max_abs_err"] = {
+        n: max(r[f"{n}_max_abs_err"] for r in rows)
+        for n in ("lse", "delta", "dq", "dk", "dv")}
+    out["bwd_build"] = {"ptxas": bwd_ptxas(log),
+                        "dynamic_smem_bytes": {
+                            d_: swa.bwd_smem_bytes(d_) for d_ in swa.FMA_D}}
+    print(json.dumps({"swa_attention_bwd build": out["bwd_build"]}),
+          flush=True)
+    out["a_seconds"] = time.perf_counter() - t0
+
+    # (b) a float32 copy at full width, 2 layers: kernels vs plain
+    t0 = time.perf_counter()
+    cfg32 = effective_config(get_config(TRAIN["arch"]),
+                             SHAPES[TRAIN["shape"]]).replace(
+        n_layers=TRAIN_FP32["n_layers"], param_dtype="float32",
+        compute_dtype="float32")
+    if (cfg32.attention, cfg32.window, cfg32.d_model, cfg32.remat) != \
+            ("swa", 4096, 2560, True):
+        raise AssertionError(f"not the qwen3-4b-swa4096 config: {cfg32}")
+    params = init_params(model_decls(cfg32),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         torch.float32)
+    batch = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in synthetic_batch(
+        0, TRAIN_FP32["batch"], TRAIN_FP32["seq"], cfg32.vocab_size).items()}
+    names = ("swa_attention_fma", "swa_attention_wgmma",
+             "swa_attention_bwd_stats", "swa_attention_bwd_dkdv",
+             "swa_attention_bwd_dq")
+    counted = [getattr(swa, n) for n in names]
+    n0 = [f.launches for f in counted]
+    kloss, kgrads = train_grads(cfg32, params, batch)
+    torch.cuda.synchronize()
+    launched = {n: f.launches - c for n, f, c in zip(names, counted, n0)}
+    L = cfg32.n_layers
+    want = {"swa_attention_fma": 2 * L, "swa_attention_wgmma": 0,
+            "swa_attention_bwd_stats": L, "swa_attention_bwd_dkdv": L,
+            "swa_attention_bwd_dq": L}
+    if launched != want:
+        raise AssertionError(f"(b) launches {launched}, want {want}")
+    with mock.patch.object(ops, "swa_attention", swa_attention_plain), \
+            mock.patch.object(ops, "swa_attention_bwd",
+                              swa_attention_bwd_plain):
+        ploss, pgrads = train_grads(cfg32, params, batch)
+    torch.cuda.synchronize()
+    worst = max(((share_err(kgrads[p_], pgrads[p_])[1], p_)
+                 for p_ in pgrads), key=lambda t: t[0])
+    loss_rel = abs(kloss - ploss) / abs(ploss)
+    out["fp32"] = {"layers": L, "tokens": [TRAIN_FP32["batch"],
+                                           TRAIN_FP32["seq"]],
+                   "loss": kloss, "plain_loss": ploss,
+                   "loss_rel_err": loss_rel, "worst_grad_share": worst[0],
+                   "worst_grad_leaf": worst[1], "launches": launched,
+                   "seconds": time.perf_counter() - t0}
+    print(json.dumps({"train fp32": out["fp32"]}), flush=True)
+    if not (np.isfinite(kloss) and loss_rel <= TRAIN_LOSS_RTOL
+            and worst[0] <= TRAIN_GRAD_SHARE):
+        raise AssertionError(f"(b) the float32 copy's loss or gradients "
+                             f"differ between the kernels and the plain "
+                             f"versions: {out['fp32']}")
+    del params, batch, kgrads, pgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the slice: qwen3-4b-swa4096 at full size, 3 steps of train()
+    cfg = effective_config(get_config(TRAIN["arch"]), SHAPES[TRAIN["shape"]])
+    if (cfg.attention, cfg.window, cfg.n_layers, cfg.d_model,
+            cfg.param_dtype, cfg.opt_state_dtype, cfg.remat) != \
+            ("swa", 4096, 36, 2560, "bfloat16", "float32", True):
+        raise AssertionError(f"not the full qwen3-4b-swa4096 config: {cfg}")
+    for f in train_mod.COUNTERS:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_mod.train(cfg, steps=TRAIN["steps"], batch=TRAIN["batch"],
+                          seq=TRAIN["seq"], device=dev)
+    torch.cuda.synchronize()
+    total = {f.__name__: f.launches for f in train_mod.COUNTERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    L = cfg.n_layers
+    per_step = {"swa_attention": 2 * L, "swa_attention_wgmma": 2 * L,
+                "swa_attention_bwd_stats": L, "swa_attention_bwd_dkdv": L,
+                "swa_attention_bwd_dq": L}
+    out["train"] = {
+        "arch": cfg.name, "layers": L, "tokens": [TRAIN["batch"],
+                                                  TRAIN["seq"]],
+        "steps": TRAIN["steps"], "losses": list(res.losses.values()),
+        "grad_norms": list(res.grad_norms.values()),
+        "ms": [res.seconds[s_] * 1e3 for s_ in sorted(res.seconds)],
+        "tok_per_s": [tokens / res.seconds[s_] for s_ in sorted(res.seconds)],
+        "peak_gib": peak, "launches": total,
+        "launches_per_step": [res.launches[s_] for s_ in sorted(res.launches)],
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps({"train": out["train"]}), flush=True)
+    if not (np.isfinite(out["train"]["losses"]).all()
+            and np.isfinite(out["train"]["grad_norms"]).all()):
+        raise AssertionError("(c) a loss or grad norm is not finite")
+    if any(launches != per_step for launches in
+           out["train"]["launches_per_step"]) or total.get(
+               "swa_attention_fma") or total.get("ssd_chunked"):
+        raise AssertionError(f"(c) want {per_step} a step and no FMA "
+                             f"launch; saw {out['train']['launches_per_step']}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the example's restart replay on the card
+    t0 = time.perf_counter()
+    ckpt = Path(__file__).resolve().parent / "build" / "train_e2e_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    example = runpy.run_path(str(Path(__file__).resolve().parent / "examples"
+                                 / "train_e2e_torch.py"), run_name="example")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        example["main"](["--preset", "small", "--ckpt-dir", str(ckpt)])
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if "restart replay exact" not in text:
+        raise AssertionError("(d) the example did not replay exactly")
+    out["e2e"] = {"summary": text.strip().splitlines()[-1],
+                  "seconds": time.perf_counter() - t0}
+    return out
 
 
 def holding_kernel(errs):
@@ -2573,6 +2987,36 @@ def main():
     zoo = zoo_phase(gen, card, kernels14)
     pg = zoo["swa_d256"]["shape"]
 
+    # 16) the training path
+    phase("16. main path: training qwen3-4b-swa4096 (lm_loss, AdamW, the "
+          "train step) with B2 forward and its backward kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = train_phase(gen, card, logs.get("swa_attention_bwd", ""))
+    bwd, trl = tr["bwd"], tr["train"]["launches"]
+    bwd_entries = [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention_bwd.cu",
+        # B2's backward: no TPU kernel; the reference's gradient is XLA's
+        # autodiff of the model zoo's banded attention
+        "replaces": "src/repro/kernels/swa.py:81",
+        "gradient_of": "src/repro/models/attention.py:247",
+        "launches": trl[name],
+        "max_abs_err": max(tr["bwd_max_abs_err"][g] for g in grads),
+        "ms": bwd[f"{part}_ms"], "plain_ms": bwd[plain],
+        "bound_ms": bwd[f"{part}_bound_ms"],
+        "bound_by": bwd[f"{part}_bound_by"],
+        "library_ms": bwd["library_ms"], "library": bwd["library"],
+        "backward": {k: bwd[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+        for name, part, grads, plain in (
+            ("swa_attention_bwd_stats", "stats", ("lse", "delta"),
+             "stats_plain_ms"),
+            ("swa_attention_bwd_dkdv", "dkdv", ("dk", "dv"), "plain_ms"),
+            ("swa_attention_bwd_dq", "dq", ("dq",), "plain_ms"))]
+    print(json.dumps({"train_phase": {k: tr[k] for k in
+                                      ("fp32", "e2e", "card")}}), flush=True)
+
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_csr_rows.cu",
@@ -2606,6 +3050,7 @@ def main():
         "library_ms": main_swa["library_ms"],
         "ring_prefill_launches": ring["prefill_launches"][
             "swa_attention_wgmma"],
+        "train_launches": trl["swa_attention_wgmma"],
         "d256_shape": {
             "q": pg["q"], "kv": pg["kv"], "window": pg["window"],
             "launches": zoo["swa_d256"]["launches"], "ms": pg["ms"],
@@ -2663,7 +3108,7 @@ def main():
                            + [main_ssd["fma_max_abs_err"]]),
         "ms": main_ssd["fma_ms"], "plain_ms": main_ssd["plain_ms"],
         "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}] + bwd_entries
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

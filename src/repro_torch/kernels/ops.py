@@ -1,7 +1,10 @@
 """Public wrappers around the kernels, in the model zoo's layouts.
 
 ``swa_attention_op`` takes (B, S, H, D) activations and hands the kernel
-(B, H, S, D) views of them, without a copy. A sparse operand is converted
+(B, H, S, D) views of them, without a copy, through an autograd Function
+whose backward is the backward kernel (``swa.swa_attention_bwd``: the
+hand-written ``csrc/swa_attention_bwd.cu`` on the card, its plain version
+on the CPU). A sparse operand is converted
 once and kept on the device: the paper's pre-loaded static graph data.
 ``CsrOperand`` (int32 CSR, the row-wise CSR kernel) is the one the GCN/GIN
 models and the serving pipeline multiply by for every request;
@@ -18,14 +21,38 @@ import torch
 from ..device import resolve_device
 from .spmm import (INT32_MAX, csr_to_blocked_ell, spmm_blocked_ell,
                    spmm_csr_rows, to_blocked_ell)
-from .swa import swa_attention
+from .swa import swa_attention, swa_attention_bwd
+
+
+class _SwaAttention(torch.autograd.Function):
+    """The banded attention on (B, H, S, D) views with a gradient: the
+    forward is ``swa_attention`` (the kernel ``swa._route`` names on the
+    card), the backward ``swa_attention_bwd`` from q, k, v, the output and
+    its gradient. Both are looked up in this module when called, so a
+    caller may stand the plain versions in for them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, scale: float):
+        o = swa_attention(q, k, v, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.window, ctx.scale = window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = swa_attention_bwd(q, k, v, o, do, window=ctx.window,
+                                       scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def swa_attention_op(q, k, v, *, window: int, scale: float):
     """Sliding-window attention, model layout: q (B,S,H,D), k/v (B,S,KV,D)
-    -> (B,S,H,D)."""
-    o = swa_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      window=window, scale=scale)
+    -> (B,S,H,D), differentiable in q, k and v."""
+    o = _SwaAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), window, scale)
     return o.transpose(1, 2)
 
 

@@ -22,7 +22,11 @@ Two CUDA routes compute it on the card:
 
 ``ssd_chunked`` takes the route that ``_route`` names on a CUDA tensor and
 ``ssd_chunked_plain`` on a CPU tensor; it never falls back from one to
-another. ``ssd_chunked.launches`` counts its calls, each route's entry its
+another. On a CUDA tensor under grad its outputs carry an autograd node
+whose backward raises: no kernel computes the scan's gradient on the card
+yet (ROADMAP.md B3, "Backward"), and a silent detach would drop the
+mixer's gradient. On the CPU the plain version stays differentiable.
+``ssd_chunked.launches`` counts its calls, each route's entry its
 own calls, and each of the three tensor-core kernels its own launches.
 ``ssd_chunk_state_plain``, ``ssd_state_scan_plain`` and
 ``ssd_chunk_out_plain`` are the three kernels' functions in plain PyTorch;
@@ -438,10 +442,33 @@ def ssd_chunked(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _cuda_inputs("ssd_chunked", x, B, C)
-    out = _KERNELS[_route(x.dtype, x.shape[3], B.shape[-1], Q)](
-        x, dt, B, C, A_log, D, chunk=chunk, init_state=init_state)
+    kernel = _KERNELS[_route(x.dtype, x.shape[3], B.shape[-1], Q)]
+    inputs = (x, dt, B, C, A_log, D, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        out = _NoBackward.apply(kernel, chunk, *inputs)
+    else:
+        out = kernel(x, dt, B, C, A_log, D, chunk=chunk,
+                     init_state=init_state)
     ssd_chunked.launches += 1
     return out
+
+
+class _NoBackward(torch.autograd.Function):
+    """The CUDA chunk scan under grad: the forward runs the kernel, the
+    backward raises."""
+
+    @staticmethod
+    def forward(ctx, kernel, chunk, x, dt, B, C, A_log, D, init_state):
+        return kernel(x, dt, B, C, A_log, D, chunk=chunk,
+                      init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        raise NotImplementedError(
+            "ssd_chunked has no backward on a CUDA tensor: the SSD chunk "
+            "scan's backward kernel is still to be written (ROADMAP.md B3, "
+            "\"Backward\"); mamba2 and zamba2 train on the CPU only")
 
 
 ssd_chunked.launches = 0

@@ -15,10 +15,18 @@ on the card:
   * ``swa_attention_fma`` (``csrc/swa_attention.cu``): float32 on float32
     FMA (it also takes bf16, which ``swa_attention`` never sends it).
 
+The backward has no TPU kernel (the reference trains through XLA's
+autodiff of the model zoo's banded attention); on the card it is the
+hand-written ``csrc/swa_attention_bwd.cu``, three launches (row
+statistics, dk and dv, dq) on float32 FMA for both dtypes.
+``swa_attention_bwd`` takes them on a CUDA tensor and
+``swa_attention_bwd_plain`` on a CPU tensor.
+
 ``swa_attention`` takes the kernel that ``_route`` names on a CUDA tensor
 and ``swa_attention_plain`` on a CPU tensor; it never falls back from one
 to another. Each kernel's entry function counts its launches
-(``.launches``); ``swa_attention.launches`` counts both.
+(``.launches``); ``swa_attention.launches`` counts both forward
+kernels.
 
 Layout: q (B, H, S, D), k and v (B, KV, S, D); query head h reads KV head
 h // (H // KV). Every route takes what one of the reference's two
@@ -110,6 +118,113 @@ def swa_attention_plain(q, k, v, *, window: int, scale: float,
                     out[b, heads, n * c + r0:n * c + r1] = (p @ vw).to(
                         q.dtype)
     return out
+
+
+def _check_bwd(q, k, v, o, do, window: int):
+    _check(q, k, v, window)
+    for label, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(f"{label} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} does not match q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+
+
+def _piece(G: int, w: int, S: int, chunk_bytes: int) -> int:
+    """Rows (or keys) a piece of the plain backward takes at once, so that
+    G x n x (n + w - 1) float32 scores stay under ``chunk_bytes``."""
+    n = S
+    while n > 1 and G * n * (n + w - 1) * 4 > chunk_bytes:
+        n = (n + 1) // 2
+    return n
+
+
+def _band(r0: int, r1: int, c0: int, c1: int, window: int, device):
+    rel = (torch.arange(r0, r1, device=device)[:, None]
+           - torch.arange(c0, c1, device=device)[None, :])
+    return (rel >= 0) & (rel < window)
+
+
+def swa_attention_bwd_stats_plain(q, k, o, do, *, window: int, scale: float,
+                                  chunk_bytes: int = PLAIN_CHUNK_BYTES):
+    """Row statistics of the backward, plain PyTorch: (lse, delta), both
+    float32 (B, H, S). lse is recomputed from the band, with the forward's
+    finite ``NEG_INF`` and ``max(l, 1e-30)``: m the largest in-band score
+    of a row, lse = m + log(max(sum exp(s - m), 1e-30)); delta = sum_d
+    do * o. Works on pieces of rows, as ``swa_attention_bwd_plain``."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    w = min(window, S)
+    n = _piece(G, w, S, chunk_bytes)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    for b in range(B):
+        for kh in range(KV):
+            heads = slice(kh * G, (kh + 1) * G)
+            qs = q[b, heads].float() * scale                    # (G, S, D)
+            kf = k[b, kh].float()
+            for r0 in range(0, S, n):
+                r1 = min(S, r0 + n)
+                c0 = max(0, r0 - w + 1)
+                valid = _band(r0, r1, c0, r1, window, q.device)
+                s = torch.where(valid, qs[:, r0:r1] @ kf[c0:r1].T, NEG_INF)
+                m = s.amax(dim=-1)
+                e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+                lse[b, heads, r0:r1] = m + torch.log(
+                    e.sum(dim=-1).clamp_min(1e-30))
+    return lse, delta
+
+
+def swa_attention_bwd_plain(q, k, v, o, do, *, window: int, scale: float,
+                            chunk_bytes: int = PLAIN_CHUNK_BYTES):
+    """Plain PyTorch backward of the banded attention: (dq, dk, dv) in the
+    inputs' dtype, from q (B, H, S, D), k and v (B, KV, S, D), the forward's
+    output o and its gradient do (both (B, H, S, D)).
+
+    The arithmetic of the reference's flash backward
+    (``models/attention.py:_flash_vjp_bwd``) under the band mask
+    ``0 <= row - col < window``, in float32: with lse and delta from
+    ``swa_attention_bwd_stats_plain``, for each block of keys and the
+    query rows that see it, s = (q * scale) k^T, p = exp(s - lse) (0 off
+    the band), dv = p^T do, dp = do v^T, ds = p (dp - delta) scale, dq +=
+    ds k, dk = ds^T q; dk and dv sum the G query heads of a KV head. A
+    block of keys is as large as keeps G x keys x (keys + window - 1)
+    float32 scores under ``chunk_bytes``."""
+    _check_bwd(q, k, v, o, do, window)
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    w = min(window, S)
+    n = _piece(G, w, S, chunk_bytes)
+    lse, delta = swa_attention_bwd_stats_plain(
+        q, k, o, do, window=window, scale=scale, chunk_bytes=chunk_bytes)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for b in range(B):
+        for kh in range(KV):
+            heads = slice(kh * G, (kh + 1) * G)
+            qf = q[b, heads].float()                            # (G, S, D)
+            dof = do[b, heads].float()
+            kf, vf = k[b, kh].float(), v[b, kh].float()
+            dqf = torch.zeros_like(qf)
+            for c0 in range(0, S, n):
+                c1 = min(S, c0 + n)
+                r1 = min(S, c1 + w - 1)          # rows c0 .. r1 see a key
+                valid = _band(c0, r1, c0, c1, window, q.device)
+                s = (qf[:, c0:r1] * scale) @ kf[c0:c1].T        # (G, r, c)
+                p = torch.where(
+                    valid, torch.exp(s - lse[b, heads, c0:r1, None]), 0.0)
+                del s
+                dv[b, kh, c0:c1] = (p.transpose(1, 2) @ dof[:, c0:r1]).sum(0)
+                ds = p * (dof[:, c0:r1] @ vf[c0:c1].T
+                          - delta[b, heads, c0:r1, None]) * scale
+                del p
+                dqf[:, c0:r1] += ds @ kf[c0:c1]
+                dk[b, kh, c0:c1] = (ds.transpose(1, 2) @ qf[:, c0:r1]).sum(0)
+            dq[b, heads] = dqf
+    return dq, dk, dv
 
 
 def _route(dtype, D: int) -> str:
@@ -254,6 +369,135 @@ def swa_attention(q, k, v, *, window: int, scale: float):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The backward on the card: csrc/swa_attention_bwd.cu
+# ---------------------------------------------------------------------------
+BWD_ENTRIES = ("swa_attention_bwd_stats", "swa_attention_bwd_dkdv",
+               "swa_attention_bwd_dq")
+
+
+@functools.cache
+def _bwd_fn(name: str):
+    fn = getattr(_build.load("swa_attention_bwd"), name)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_smem_bytes(D: int) -> dict:
+    """Dynamic shared memory of each backward launch at head dim D (builds
+    the kernel's library)."""
+    fn = _build.load("swa_attention_bwd").swa_attention_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return {name: fn(i, D) for i, name in enumerate(BWD_ENTRIES)}
+
+
+def _bwd_cuda_check(name: str, q, k, v, o, do, window: int):
+    _check_bwd(q, k, v, o, do, window)
+    _check_tiles(q.shape[2], window)
+    if q.shape[3] not in FMA_D:
+        raise ValueError(f"{name} takes D in {FMA_D}; got D={q.shape[3]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on a CUDA tensor; got {q.device} "
+                         "(swa_attention_bwd takes the plain version on the "
+                         "CPU)")
+    B, H = q.shape[:2]
+    if B * H > 65535:
+        raise ValueError(f"{name} takes B*H <= 65535; got {B * H}")
+
+
+def _bwd_launch(which: int, q, k, v, o, do, lse, delta, dq, dk, dv, *,
+                window: int, scale: float):
+    """One entry of the backward kernel; every tensor it reads or writes
+    must have a contiguous last dimension and 16-byte aligned rows."""
+    name = BWD_ENTRIES[which]
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = []
+    for label, t in zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"),
+                        tensors):
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                (st * t.element_size()) % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: {label} needs a contiguous last "
+                             f"dimension and 16-byte aligned rows; strides "
+                             f"{t.stride()}")
+        strides += t.stride()[:3]
+    B, H, S, D = q.shape
+    arr = (ctypes.c_int64 * 24)(*strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _bwd_fn(name)(
+            _DTYPES[q.dtype], *(t.data_ptr() for t in tensors),
+            lse.data_ptr(), delta.data_ptr(), B, H, k.shape[1], S, D, window,
+            scale, ctypes.addressof(arr), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def swa_attention_bwd_stats(q, k, v, o, do, *, window: int, scale: float):
+    """Launch 1 of the backward kernel on CUDA tensors: (lse, delta),
+    float32 (B, H, S), as ``swa_attention_bwd_stats_plain``."""
+    _bwd_cuda_check("swa_attention_bwd_stats", q, k, v, o, do, window)
+    lse, delta = (torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    # dq, dk, dv are not read: q, k, v stand in for their pointers
+    _bwd_launch(0, q, k, v, o, do, lse, delta, q, k, v, window=window,
+                scale=scale)
+    swa_attention_bwd_stats.launches += 1
+    return lse, delta
+
+
+def swa_attention_bwd_dkdv(q, k, v, o, do, lse, delta, *, window: int,
+                           scale: float):
+    """Launch 2 of the backward kernel on CUDA tensors: (dk, dv) in k's
+    dtype and strides, from the row statistics of launch 1."""
+    _bwd_cuda_check("swa_attention_bwd_dkdv", q, k, v, o, do, window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch(1, q, k, v, o, do, lse, delta, q, dk, dv, window=window,
+                scale=scale)
+    swa_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def swa_attention_bwd_dq(q, k, v, o, do, lse, delta, *, window: int,
+                         scale: float):
+    """Launch 3 of the backward kernel on CUDA tensors: dq in q's dtype and
+    strides, from the row statistics of launch 1."""
+    _bwd_cuda_check("swa_attention_bwd_dq", q, k, v, o, do, window)
+    dq = torch.empty_like(q)
+    _bwd_launch(2, q, k, v, o, do, lse, delta, dq, k, v, window=window,
+                scale=scale)
+    swa_attention_bwd_dq.launches += 1
+    return dq
+
+
+def swa_attention_bwd(q, k, v, o, do, *, window: int, scale: float):
+    """Backward of ``swa_attention``: (dq, dk, dv) in the inputs' dtype,
+    from the forward's inputs, its output o and the output's gradient do.
+
+    On a CUDA tensor: the three launches of ``csrc/swa_attention_bwd.cu``
+    on the current stream (float32 or bf16, D 64, 128 or 256, S and window
+    multiples of ``BLK``; o and do with the strides the kernel takes, see
+    ``_bwd_launch``). On a CPU tensor: ``swa_attention_bwd_plain``."""
+    _check_bwd(q, k, v, o, do, window)
+    if q.device.type == "cpu":
+        return swa_attention_bwd_plain(q, k, v, o, do, window=window,
+                                       scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    lse, delta = swa_attention_bwd_stats(q, k, v, o, do, window=window,
+                                         scale=scale)
+    dk, dv = swa_attention_bwd_dkdv(q, k, v, o, do, lse, delta,
+                                    window=window, scale=scale)
+    dq = swa_attention_bwd_dq(q, k, v, o, do, lse, delta, window=window,
+                              scale=scale)
+    return dq, dk, dv
+
+
 swa_attention.launches = 0
 swa_attention_wgmma.launches = 0
 swa_attention_fma.launches = 0
+swa_attention_bwd_stats.launches = 0
+swa_attention_bwd_dkdv.launches = 0
+swa_attention_bwd_dq.launches = 0

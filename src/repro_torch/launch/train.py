@@ -1,0 +1,157 @@
+"""Training launcher: any architecture of the zoo, on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --smoke \\
+      --steps 30 [--ckpt-dir /tmp/ckpt] [--device cpu]
+
+``--smoke`` runs the reduced same-family config; without it the full config
+runs, on one card with no mesh (multi-device training is ROADMAP.md A.10).
+``--shape`` routes the config through ``effective_config`` as the
+reference's ``steps.step_fn`` routes a shape: ``--shape long_500k`` trains
+the dense archs with sliding-window attention, window 4096, whose band
+runs on the hand-written kernels forward and backward. Weights are drawn
+from a seeded ``torch.Generator`` on the device; batches come from the
+seekable ``TokenStream``. Restart is automatic: if the checkpoint dir holds
+a committed step, training resumes from it with identical batches.
+
+Full size on the card, qwen3-4b-swa4096 at 2 x 16,384 tokens:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+        --shape long_500k --steps 3 --batch 2 --seq 16384
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from ..checkpoint import Checkpointer
+from ..configs import SHAPES, get_config, get_smoke
+from ..data import TokenStream
+from ..device import resolve_device, synchronize
+from ..kernels import (ssd_chunked, swa_attention, swa_attention_bwd_dkdv,
+                       swa_attention_bwd_dq, swa_attention_bwd_stats,
+                       swa_attention_fma, swa_attention_wgmma)
+from ..models.common import ModelConfig, init_params, param_count
+from ..models.lm import model_decls
+from ..optim import AdamWConfig, adamw_init
+from .steps import effective_config, make_train_step
+
+SEED = 0              # weights (torch.Generator on the device)
+LOG_EVERY = 5         # a [train] line every LOG_EVERY steps and the last
+# the kernel entries a training step can launch, each counting its launches
+COUNTERS = (swa_attention, swa_attention_wgmma, swa_attention_fma,
+            swa_attention_bwd_stats, swa_attention_bwd_dkdv,
+            swa_attention_bwd_dq, ssd_chunked)
+
+
+@dataclasses.dataclass
+class TrainResult:
+    cfg: ModelConfig
+    params: dict
+    opt: dict
+    start: int                  # first step run (after a resume)
+    losses: dict                # step -> float loss
+    grad_norms: dict            # step -> float grad norm
+    seconds: dict               # step -> host clock of the synchronised step
+    launches: dict              # step -> {entry: launches in that step}
+    tokens_per_step: int
+
+
+def train(cfg: ModelConfig, *, steps: int = 30, batch: int = 8,
+          seq: int = 128, ckpt_dir=None, ckpt_every: int = 10,
+          device=None) -> TrainResult:
+    """Train ``cfg`` from a seeded init (or the newest committed checkpoint
+    in ``ckpt_dir``) up to ``steps``; a checkpoint every ``ckpt_every``
+    steps after the first."""
+    dev = resolve_device(device)
+    decls = model_decls(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(decls, gen, dev, cfg.pdtype)
+    ocfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    opt = adamw_init(params, ocfg)
+    step_fn = make_train_step(cfg, ocfg, device=dev)
+
+    start = 0
+    ck = Checkpointer(ckpt_dir) if ckpt_dir else None
+    if ck is not None:
+        restored, s = ck.restore_latest({"params": params, "opt": opt,
+                                         "step": 0})
+        if restored is not None:
+            params, opt = restored["params"], restored["opt"]
+            start = int(restored["step"]) + 1
+            print(f"[train] resumed from committed step {s}")
+
+    res = TrainResult(cfg, params, opt, start, {}, {}, {}, {}, batch * seq)
+    stream = TokenStream(batch, seq, cfg.vocab_size, device=dev).start(start)
+    t0 = time.perf_counter()
+    try:
+        for step in range(start, steps):
+            b = stream.get(step)
+            if cfg.family == "vlm":
+                b["prefix_embeds"] = torch.ones(
+                    (batch, cfg.prefix_tokens, cfg.frontend_dim),
+                    dtype=torch.float32, device=dev)
+            if cfg.family == "encdec":
+                b["src_frames"] = torch.ones((batch, seq, cfg.d_model),
+                                             dtype=torch.float32, device=dev)
+            before = [f.launches for f in COUNTERS]
+            synchronize(dev)
+            ts = time.perf_counter()
+            params, opt, m = step_fn(params, opt, b)
+            res.losses[step] = float(m["loss"])
+            res.grad_norms[step] = float(m["grad_norm"])
+            synchronize(dev)
+            res.seconds[step] = time.perf_counter() - ts
+            res.launches[step] = {f.__name__: f.launches - n for f, n in
+                                  zip(COUNTERS, before) if f.launches != n}
+            if step % LOG_EVERY == 0 or step == steps - 1:
+                print(f"[train] step {step:5d} loss {res.losses[step]:.4f} "
+                      f"gnorm {res.grad_norms[step]:.3f} "
+                      f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            if ck is not None and step and step % ckpt_every == 0:
+                ck.save({"params": params, "opt": opt, "step": step}, step)
+    finally:
+        stream.stop()
+        if ck is not None:
+            ck.wait()
+    res.params, res.opt = params, opt
+    return res
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--shape", default=None, choices=sorted(SHAPES),
+                    help="route the config through effective_config for "
+                         "this shape (long_500k: SWA, window 4096)")
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises when there is no card)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.shape:
+        cfg = effective_config(cfg, SHAPES[args.shape])
+    print(f"[train] {cfg.name}{' (smoke)' if args.smoke else ''}: "
+          f"{param_count(model_decls(cfg)) / 1e6:.1f}M params on {dev}"
+          f"{f', attention {cfg.attention} window {cfg.window}' if cfg.attention == 'swa' else ''}")
+    res = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                device=dev)
+    if res.seconds:
+        last = max(res.seconds)
+        print(f"[train] last step {res.seconds[last] * 1e3:.1f} ms "
+              f"({res.tokens_per_step / res.seconds[last]:.1f} tok/s); "
+              f"kernel launches {res.launches[last]}")
+    print("[train] done")
+
+
+if __name__ == "__main__":
+    main()

@@ -5,4 +5,4 @@ kernel; encdec; vlm)."""
 from .gnn import (GCN, GIN, gcn_params_from_numpy, gin_params_from_numpy,
                   init_gcn_params, init_gin_params)
 from .common import ModelConfig, ParamDecl, init_params, param_count
-from .lm import encode, forward, lm_params_from_numpy, model_decls
+from .lm import encode, forward, lm_loss, lm_params_from_numpy, model_decls

@@ -1,18 +1,21 @@
-"""Attention layers: GQA/MQA with RoPE and optional qk-norm (forward only).
+"""Attention layers: GQA/MQA with RoPE and optional qk-norm.
 
 Three execution paths:
   * ``flash_attention``  — full causal or bidirectional attention as an
-    online-softmax scan over KV blocks (memory-bounded; plain PyTorch).
+    online-softmax scan over KV blocks (memory-bounded; plain PyTorch), an
+    autograd Function with the reference's custom VJP: its residuals are
+    q, k, v, the output and lse, and the backward recomputes the scores
+    blockwise (``models/attention.py:93-192`` of the JAX package).
   * ``swa_attention``    — sliding-window attention. Below the sequence
     length it runs the hand-written banded kernel through
-    ``kernels.ops.swa_attention_op`` (its plain version on CPU tensors);
-    a window that covers the sequence is plain causal attention.
+    ``kernels.ops.swa_attention_op`` (its plain version on CPU tensors),
+    whose backward is the hand-written backward kernel; a window that
+    covers the sequence is plain causal attention.
   * ``decode_attention`` — one new token against a KV cache (a ring buffer
     of ``window`` slots for SWA), plain PyTorch as in the JAX package.
     ``attention_decode_step`` writes the new k and v into the cache in
     place, and takes ``pos`` as a Python int so that neither the slot nor
     the mask needs the device.
-The backward passes wait for the training slice (ROADMAP.md A.9).
 """
 from __future__ import annotations
 
@@ -61,11 +64,12 @@ def _qkv(p, x, positions, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Full attention: online-softmax scan over KV blocks
+# Full attention: online-softmax scan over KV blocks, flash-style custom VJP
+# (the backward recomputes the scores blockwise; residuals are q, k, v, out
+# and lse, O(S), never O(S^2))
 # ---------------------------------------------------------------------------
-def flash_attention(q, k, v, *, scale: float, causal: bool = True,
-                    block_k: int = 256):
-    """q: (B,S,H,D), k/v: (B,Sk,KV,D) -> (B,S,H,D). float32 math."""
+def _flash_fwd(q, k, v, scale: float, causal: bool, block_k: int):
+    """(out in q's dtype, lse (B, S, KV, G) float32)."""
     B, S, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -92,8 +96,66 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
         acc = acc * alpha[..., None] + torch.einsum("bskgt,btkd->bskgd",
                                                     pexp, v_b)
         m = m_new
+    lse = m + torch.log(l.clamp_min(1e-30))
     out = (acc / l.clamp_min(1e-30)[..., None]).reshape(B, S, H, D)
-    return out.to(q.dtype)
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, scale: float, causal: bool,
+               block_k: int):
+    """The reference's ``_flash_vjp_bwd``: (dq, dk, dv) in the inputs'
+    dtypes, the scores recomputed a KV block at a time in float32."""
+    B, S, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    bk = min(block_k, Sk)
+    nb = -(-Sk // bk)
+    qf = q.float().reshape(B, S, KV, G, D)
+    dog = dout.float().reshape(B, S, KV, G, D)
+    og = out.float().reshape(B, S, KV, G, D)
+    delta = (dog * og).sum(dim=-1)                            # (B,S,KV,G)
+    qpos = torch.arange(S, device=q.device)
+    dq = torch.zeros((B, S, KV, G, D), device=q.device)
+    dk = torch.empty((B, Sk, KV, D), device=q.device)
+    dv = torch.empty((B, Sk, KV, D), device=q.device)
+    for blk in range(nb):
+        start = blk * bk
+        k_b = k[:, start:start + bk].float()
+        v_b = v[:, start:start + bk].float()
+        kpos = start + torch.arange(k_b.shape[1], device=q.device)
+        s = torch.einsum("bskgd,btkd->bskgt", qf * scale, k_b)
+        if causal:
+            mask = qpos[:, None] >= kpos[None, :]
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                     # (B,S,KV,G,t)
+        dv[:, start:start + bk] = torch.einsum("bskgt,bskgd->btkd", p, dog)
+        dp = torch.einsum("bskgd,btkd->bskgt", dog, v_b)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bskgt,btkd->bskgd", ds, k_b)
+        dk[:, start:start + bk] = torch.einsum("bskgt,bskgd->btkd", ds, qf)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool, block_k: int):
+        out, lse = _flash_fwd(q, k, v, scale, causal, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, out, lse, dout, *ctx.args),
+                None, None, None)
+
+
+def flash_attention(q, k, v, *, scale: float, causal: bool = True,
+                    block_k: int = 256):
+    """q: (B,S,H,D), k/v: (B,Sk,KV,D) -> (B,S,H,D). float32 math."""
+    return _Flash.apply(q, k, v, scale, causal, block_k)
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +176,7 @@ def swa_attention(q, k, v, *, window: int, scale: float):
 # ---------------------------------------------------------------------------
 def attention_train(p, x, positions, cfg: ModelConfig, *,
                     window: int | None = None, causal: bool = True):
-    """Full-sequence attention (train / prefill), forward only."""
+    """Full-sequence attention (train / prefill)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, positions, cfg)
     scale = cfg.head_dim ** -0.5

@@ -40,10 +40,13 @@ def tree_leaves(tree, prefix: str = ""):
         yield prefix, tree
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of each tree
+    in ``rest``, which share its dict structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def _truncated_normal_(t: torch.Tensor, generator) -> torch.Tensor:

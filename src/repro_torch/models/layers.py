@@ -2,13 +2,16 @@
 
 Each function takes and returns tensors in the layouts of the JAX package's
 ``models/layers.py`` and rounds to the compute dtype at the same places.
-The chunked cross-entropy loss waits for the training slice.
+The chunked cross-entropy loss has no vocab-parallel branch: that is
+multi-device work (ROADMAP.md A.10).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, ParamDecl
 
@@ -99,7 +102,9 @@ def embed_decls(cfg: ModelConfig):
 
 
 def embed_apply(p, tokens, cfg: ModelConfig):
-    x = p["embedding"].to(cfg.cdtype)[tokens.long()]
+    # F.embedding's gradient sums repeated tokens in a fixed order on the
+    # card (indexing's accumulates with atomics), so training replays
+    x = F.embedding(tokens.long(), p["embedding"].to(cfg.cdtype))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
     return x
@@ -117,3 +122,38 @@ def logits_from_hidden(h, p, cfg: ModelConfig):
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross entropy: full-vocab logits are alive for ``loss_chunk``
+# positions at a time (vital for 256k vocabs)
+# ---------------------------------------------------------------------------
+def chunked_softmax_xent(hidden, labels, mask, p, cfg: ModelConfig):
+    """hidden: (B, S, d); labels, mask: (B, S). Returns float32
+    (sum of the masked losses, sum of the mask). Each chunk of
+    ``loss_chunk`` positions is one ``torch.utils.checkpoint``, so under
+    grad its logits are recomputed in the backward, as the reference's
+    ``jax.checkpoint(one)`` does."""
+    B, S, _ = hidden.shape
+    chunk = min(cfg.loss_chunk, S)
+    w = unembed_weight(p, cfg)                                 # (d, V)
+
+    def one(h_c, y_c, m_c, w):
+        logits = (h_c @ w).float()
+        if cfg.logit_softcap > 0:
+            logits = cfg.logit_softcap * torch.tanh(
+                logits / cfg.logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, y_c[..., None].long())[..., 0]
+        return ((lse - gold) * m_c).sum(), m_c.sum()
+
+    grad = torch.is_grad_enabled()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, chunk):
+        args = (hidden[:, s0:s0 + chunk], labels[:, s0:s0 + chunk],
+                mask[:, s0:s0 + chunk].float(), w)
+        l, c = (checkpoint(one, *args, use_reentrant=False) if grad
+                else one(*args))
+        loss_sum, cnt = loss_sum + l, cnt + c
+    return loss_sum, cnt

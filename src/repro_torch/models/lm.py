@@ -18,10 +18,14 @@ Parameters are a nested dict shaped like the JAX package's pytree, with
 the per-layer weights stacked along a leading layer axis; ``forward`` and
 ``decode_step`` walk the layers in a Python loop over views of that
 stack, so the decode step's in-place cache writes land in the stacked
-cache of ``init_cache``. ``forward`` returns the hidden states only: the
-MoE router's aux loss, which the reference also returns, is for the
-training loss (``moe.moe_ffn`` returns it). ``lm_params_from_numpy``
-carries the reference's parameters across.
+cache of ``init_cache``. ``_forward`` returns the hidden states and the
+MoE router's aux loss summed over the layers, as the reference's
+``forward`` does; ``lm_loss`` (the training loss) reads both, and the
+public ``forward`` returns the hidden states only. Under ``cfg.remat``
+and grad each layer body is one ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan body), so the backward keeps
+one (B, S, d) input a layer and recomputes the rest.
+``lm_params_from_numpy`` carries the reference's parameters across.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn
@@ -36,8 +41,9 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import ModelConfig, ParamDecl, tree_leaves, tree_map
-from .layers import (embed_apply, embed_decls, ffn_apply, ffn_decls,
-                     logits_from_hidden, norm_decl, rms_norm)
+from .layers import (chunked_softmax_xent, embed_apply, embed_decls,
+                     ffn_apply, ffn_decls, logits_from_hidden, norm_decl,
+                     rms_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +145,8 @@ def _window(cfg: ModelConfig):
 def attn_block(p, x, positions, cfg: ModelConfig, *, causal=True,
                moe=False, mla=False):
     """Pre-norm attention (GQA/MQA, or MLA) and FFN (dense, or routed
-    experts whose aux loss is dropped here) with residuals."""
+    experts) with residuals. Returns (x, aux): the routed experts' float32
+    aux loss, 0 for a dense FFN."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mla:
         h = mla_mod.mla_train(p["attn"], h, positions, cfg)
@@ -149,10 +156,10 @@ def attn_block(p, x, positions, cfg: ModelConfig, *, causal=True,
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe:
-        h, _ = moe_mod.moe_ffn(p["ffn"], h, cfg)
+        h, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
     else:
-        h = ffn_apply(p["ffn"], h, cfg)
-    return x + h
+        h, aux = ffn_apply(p["ffn"], h, cfg), _zero(x)
+    return x + h, aux
 
 
 def mamba_block(p, x, cfg: ModelConfig):
@@ -160,9 +167,25 @@ def mamba_block(p, x, cfg: ModelConfig):
     return x + ssm_mod.mamba_block(p["mix"], h, cfg)
 
 
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _layer(tree, i):
     """Layer ``i`` of a stacked tree, as views."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _layers(tree):
+    """Every layer of a stacked tree (none for ``None``), as views from one
+    ``unbind`` a leaf. Its backward stacks the layers' gradients once;
+    ``_layer`` under grad would add a zero-filled gradient of the whole
+    leaf for each layer."""
+    if tree is None:
+        return []
+    split = tree_map(lambda t: t.unbind(0), tree)
+    n = len(next(tree_leaves(split))[1])
+    return [tree_map(lambda s: s[i], split) for i in range(n)]
 
 
 def _dense_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -175,12 +198,23 @@ def _positions(x):
     return torch.arange(S, device=x.device).expand(B, S)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-            enc_out=None):
-    """tokens: (B, S) integer tensor -> final-norm hidden states (B, S', d).
-    prefix_embeds: (B, Sp, frontend_dim) for the vlm family, projected and
-    put before the tokens (S' = Sp + S); enc_out: the encoder's hidden
-    states (``encode``) that the encdec decoder cross-attends to."""
+def _blocks(cfg: ModelConfig, x, bodies):
+    """Run layer bodies ``body(x) -> (x, aux)`` in order; returns (x, the
+    sum of their aux). Under ``cfg.remat`` and grad each body is one
+    ``torch.utils.checkpoint``."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = _zero(x)
+    for body in bodies:
+        x, a = (checkpoint(body, x, use_reentrant=False) if remat
+                else body(x))
+        aux = aux + a
+    return x, aux
+
+
+def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+             enc_out=None):
+    """``forward``, returning (final-norm hidden states, the aux loss summed
+    over the layers: the MoE router's, float32 0 for other families)."""
     x = embed_apply(params, tokens, cfg)
     if cfg.family == "vlm" and prefix_embeds is not None:
         pe = prefix_embeds.to(cfg.cdtype)
@@ -191,47 +225,75 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
     fam = cfg.family
     if fam == "hybrid":
         pat, n_macro = _hybrid(cfg)
-        for i in range(n_macro):
-            mi = 0
-            for ch in pat:
-                if ch == "a":
-                    x = attn_block(params["shared_attn"], x, positions, cfg)
-                else:
-                    x = mamba_block(_layer(params[f"mamba{mi}"], i), x, cfg)
-                    mi += 1
+        mambas = [_layers(params[f"mamba{mi}"])
+                  for mi in range(pat.count("m"))]
+
+        def macro(i):
+            def body(h):
+                a, mi = _zero(h), 0
+                for ch in pat:
+                    if ch == "a":
+                        h, a0 = attn_block(params["shared_attn"], h,
+                                           positions, cfg)
+                        a = a + a0
+                    else:
+                        h = mamba_block(mambas[mi][i], h, cfg)
+                        mi += 1
+                return h, a
+            return body
+
+        x, aux = _blocks(cfg, x, [macro(i) for i in range(n_macro)])
     elif fam == "moe":
         dcfg = _dense_cfg(cfg)
-        for i in range(cfg.n_dense_layers):
-            x = attn_block(_layer(params["dense_layers"], i), x, positions,
-                           dcfg, mla=True)
-        for i in range(cfg.n_layers - cfg.n_dense_layers):
-            x = attn_block(_layer(params["moe_layers"], i), x, positions,
-                           cfg, moe=True, mla=True)
+        x, aux = _blocks(cfg, x, [
+            (lambda h, lp=lp: attn_block(lp, h, positions, dcfg, mla=True))
+            for lp in _layers(params.get("dense_layers"))])
+        x, a1 = _blocks(cfg, x, [
+            (lambda h, lp=lp: attn_block(lp, h, positions, cfg, moe=True,
+                                         mla=True))
+            for lp in _layers(params.get("moe_layers"))])
+        aux = aux + a1
     elif fam == "encdec":
         # each decoder layer: the causal self-attention block (attention,
         # then FFN), then cross-attention to enc_out
-        for i in range(cfg.dec_layers):
-            lp = _layer(params["dec_layers"], i)
-            x = attn_block(lp, x, positions, cfg)
-            hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-            x = x + _cross_attention(lp["xattn"], hx, enc_out, cfg)
+        def dec(lp):
+            def body(h):
+                h, _ = attn_block(lp, h, positions, cfg)
+                hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
+                return h + _cross_attention(lp["xattn"], hx, enc_out,
+                                            cfg), _zero(h)
+            return body
+
+        x, aux = _blocks(cfg, x, [dec(lp)
+                                  for lp in _layers(params["dec_layers"])])
+    elif fam == "ssm":
+        x, aux = _blocks(cfg, x, [
+            (lambda h, lp=lp: (mamba_block(lp, h, cfg), _zero(h)))
+            for lp in _layers(params["layers"])])
     else:
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            if fam == "ssm":
-                x = mamba_block(lp, x, cfg)
-            else:
-                x = attn_block(lp, x, positions, cfg)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, aux = _blocks(cfg, x, [
+            (lambda h, lp=lp: attn_block(lp, h, positions, cfg))
+            for lp in _layers(params["layers"])])
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+            enc_out=None):
+    """tokens: (B, S) integer tensor -> final-norm hidden states (B, S', d).
+    prefix_embeds: (B, Sp, frontend_dim) for the vlm family, projected and
+    put before the tokens (S' = Sp + S); enc_out: the encoder's hidden
+    states (``encode``) that the encdec decoder cross-attends to."""
+    return _forward(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                    enc_out=enc_out)[0]
 
 
 def encode(params, frames, cfg: ModelConfig):
     """Bidirectional encoder over precomputed frontend frames (B, S, d)."""
     x = frames.to(cfg.cdtype)
     positions = _positions(x)
-    for i in range(cfg.enc_layers):
-        x = attn_block(_layer(params["enc_layers"], i), x, positions, cfg,
-                       causal=False)
+    x, _ = _blocks(cfg, x, [
+        (lambda h, lp=lp: attn_block(lp, h, positions, cfg, causal=False))
+        for lp in _layers(params["enc_layers"])])
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -248,6 +310,36 @@ def _cross_attention(p, x, enc_out, cfg: ModelConfig):
     o = attn.flash_attention(q, k, v, scale=cfg.head_dim ** -0.5,
                              causal=False, block_k=cfg.attn_block_k)
     return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(cfg.cdtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(params, batch, cfg: ModelConfig):
+    """The training loss, a float32 scalar. ``batch``: tokens and labels
+    (B, S) on the parameters' device, an optional float32 ``mask`` (ones
+    by default), and the family's extra: ``prefix_embeds`` for the vlm
+    family (the loss covers the text positions only), ``src_frames`` for
+    the encdec family (encoded first). The masked mean of the chunked
+    cross entropy, plus ``router_aux_weight`` times the summed aux loss for
+    a model with experts."""
+    kw = {}
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = batch["prefix_embeds"]
+    if cfg.family == "encdec":
+        kw["enc_out"] = encode(params, batch["src_frames"], cfg)
+    h, aux = _forward(params, batch["tokens"], cfg, **kw)
+    labels, mask = batch["labels"], batch.get("mask")
+    if cfg.family == "vlm":
+        h = h[:, -labels.shape[1]:]
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=h.device)
+    loss_sum, cnt = chunked_softmax_xent(h, labels, mask, params, cfg)
+    loss = loss_sum / cnt.clamp_min(1.0)
+    if cfg.n_experts and cfg.router_aux_weight:
+        loss = loss + cfg.router_aux_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ token, their gates renormalised by their sum; the token-expert
 assignments stably sorted by expert, at most ``cpe`` kept per expert in
 that order; a dense slot grid (E, cpe) through two batched GEMMs; each
 slot's output weighted by its gate and added into its token; and the
-load-balance aux loss E * sum(frac * imp).
+load-balance aux loss E * sum(frac * imp), which ``lm._forward`` sums over
+the MoE layers into ``lm.lm_loss``.
 
 Two choices keep it deterministic where PyTorch alone would not be:
 

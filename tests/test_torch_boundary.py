@@ -1,6 +1,7 @@
-"""The port's boundary: nothing under src/repro_torch/ (nor chip_smoke.py)
-imports jax or the JAX package, and every entry point refuses to run on the
-CPU unless the caller asks for it."""
+"""The port's boundary: nothing under src/repro_torch/ (nor chip_smoke.py,
+nor the port's example examples/train_e2e_torch.py) imports jax or the JAX
+package, and every entry point refuses to run on the CPU unless the caller
+asks for it."""
 import ast
 import subprocess
 import sys
@@ -12,7 +13,8 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "train_e2e_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -53,6 +55,8 @@ print("OK")
 
 
 def _entry_points():
+    import runpy
+
     import numpy as np
 
     from repro_torch import resolve_device
@@ -64,7 +68,10 @@ def _entry_points():
     from repro_torch.launch import serve as serve_stream
     from repro_torch.launch import serve_prefill as prefill
     from repro_torch.launch.serve_pipeline import main, serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
     from repro_torch.models import (init_params, lm_params_from_numpy,
                                     model_decls)
     from repro_torch.models.lm import init_cache
@@ -77,7 +84,15 @@ def _entry_points():
 
     a = np.eye(16, dtype=np.float32)
     lm = get_smoke("qwen3-4b")
+    example = REPO / "examples" / "train_e2e_torch.py"
     return {
+        "make_train_step": lambda: make_train_step(lm),
+        "train.train": lambda: train.train(lm, steps=1),
+        "train.main": lambda: train.main(["--arch", "qwen3-4b", "--smoke",
+                                          "--steps", "1"]),
+        "TokenStream": lambda: TokenStream(1, 8, 16),
+        "examples/train_e2e_torch.py": lambda: runpy.run_path(
+            str(example), run_name="example")["main"](["--steps", "2"]),
         "resolve_device": lambda: resolve_device(),
         "random_graph_csr": lambda: random_graph_csr(32, 64),
         "csr_from_dense": lambda: csr_from_dense(a),

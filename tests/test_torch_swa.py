@@ -12,6 +12,13 @@ in sum order and, for the wgmma kernel, in its two-part bf16 P.
 The wgmma kernel's arithmetic (bf16 products, P split in two bf16 parts,
 its key tile at each head dim) is emulated on the CPU and held to the same
 gate.
+
+The backward: ``swa_attention_bwd_plain`` against autograd through
+``swa_attention_plain`` (1e-5 of each gradient's largest element: the same
+math in another order) and against ``jax.grad`` of the model zoo's
+``swa_attention`` (2e-5 of the largest); the CUDA backward kernel against
+it on the card at ``chip_smoke.py``'s gate, ``BWD_TOL``: float32 within
+1e-4 of each gradient's largest element, bfloat16 one ulp.
 """
 import types
 
@@ -20,12 +27,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (ref, swa, swa_attention, swa_attention_fma,
-                                 swa_attention_op, swa_attention_plain,
-                                 swa_attention_wgmma)
+from repro_torch.kernels import (ops, ref, swa, swa_attention,
+                                 swa_attention_bwd, swa_attention_bwd_dkdv,
+                                 swa_attention_bwd_dq,
+                                 swa_attention_bwd_plain,
+                                 swa_attention_bwd_stats,
+                                 swa_attention_bwd_stats_plain,
+                                 swa_attention_fma, swa_attention_op,
+                                 swa_attention_plain, swa_attention_wgmma)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 KERNEL_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2 ** -7)}
+BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2 ** -7)}
 # keys a tile of the wgmma kernel at each head dim (csrc Smem<D>::BK)
 WGMMA_BK = {64: 128, 128: 128, 256: 64}
 
@@ -393,3 +406,182 @@ def test_cuda_fma_kernel_matches_plain_in_bf16(cuda, S, window, D, G):
     torch.testing.assert_close(out, plain, atol=atol, rtol=rtol)
     assert torch.equal(out, swa_attention_fma(q, k, v, window=window,
                                               scale=D ** -0.5))
+
+
+# ---------------------------------------------------------------------------
+# the backward: plain version, autograd Function, CUDA kernel
+# ---------------------------------------------------------------------------
+def _bwd_inputs(seed, B, H, KV, S, D, window, dtype=torch.float32,
+                device="cpu"):
+    """q, k, v, the plain forward's output o and a seeded gradient do."""
+    q, k, v = _to_torch(_qkv(seed, B, H, KV, S, D), dtype, device)
+    o = swa_attention_plain(q, k, v, window=window, scale=D ** -0.5)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=q.shape).astype(np.float32)).to(device=device, dtype=dtype)
+    return q, k, v, o, do
+
+
+def _close_to_largest(got, exp, share):
+    for g, e in zip(got, exp):
+        g, e = _np(g), _np(e)
+        assert np.abs(g - e).max() <= share * np.abs(e).max()
+
+
+@pytest.mark.parametrize("S,window,G,KV,D", [
+    (256, 128, 4, 2, 64), (384, 128, 1, 2, 32), (512, 256, 8, 1, 64),
+    (256, 256, 2, 1, 16), (200, 50, 2, 2, 16), (256, 300, 1, 1, 16)])
+def test_bwd_plain_matches_autograd_through_plain(S, window, G, KV, D):
+    """Band and halo tiles, GQA groups, a window that divides S off the
+    128-row tile, a window covering S."""
+    q, k, v, _, do = _bwd_inputs(S + window + G, 2, G * KV, KV, S, D,
+                                 window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = swa_attention_plain(*leaves, window=window, scale=D ** -0.5)
+    o.backward(do)
+    got = swa_attention_bwd_plain(q, k, v, o.detach(), do, window=window,
+                                  scale=D ** -0.5)
+    _close_to_largest(got, [t.grad for t in leaves], 1e-5)
+
+
+def test_bwd_plain_matches_jax_grad_of_the_model_zoo_swa(jref):
+    """The reference trains through ``jax.grad`` of the model zoo's chunk +
+    halo ``swa_attention`` ((B, S, H, D) layout); the plain backward, fed
+    the same inputs and cotangent, gives its gradients."""
+    import jax
+    B, S, H, KV, D, W = 1, 512, 4, 2, 64, 128
+    q, k, v, o, do = _bwd_inputs(11, B, H, KV, S, D, W)
+    t = lambda x: jref.jnp.asarray(_np(x).transpose(0, 2, 1, 3))  # noqa
+    _, vjp = jax.vjp(lambda a, b, c: jref.model_swa(
+        a, b, c, window=W, scale=D ** -0.5), t(q), t(k), t(v))
+    exp = [np.asarray(g).transpose(0, 2, 1, 3) for g in vjp(t(do))]
+    got = swa_attention_bwd_plain(q, k, v, o, do, window=W, scale=D ** -0.5)
+    _close_to_largest(got, exp, 2e-5)
+
+
+def test_bwd_plain_small_pieces_match_one_piece():
+    """Pieces of 64 rows (G 2 x 64 x 191 float32 scores fit 100,000
+    bytes): key blocks whose query rows overlap, and a pass of row
+    statistics in 8 pieces, give the one-piece result."""
+    q, k, v, o, do = _bwd_inputs(12, 2, 4, 2, 512, 32, 128)
+    one = swa_attention_bwd_plain(q, k, v, o, do, window=128, scale=0.125)
+    many = swa_attention_bwd_plain(q, k, v, o, do, window=128, scale=0.125,
+                                   chunk_bytes=100_000)
+    _close_to_largest(many, one, 1e-6)
+    assert swa._piece(2, 128, 512, 100_000) == 64
+    lse, delta = swa_attention_bwd_stats_plain(q, k, o, do, window=128,
+                                               scale=0.125,
+                                               chunk_bytes=100_000)
+    s = (q.float() * 0.125) @ k.repeat_interleave(2, dim=1).transpose(2, 3)
+    rel = torch.arange(512)[:, None] - torch.arange(512)[None, :]
+    s = torch.where((rel >= 0) & (rel < 128), s, float("-inf"))
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(delta.numpy(), (do * o).sum(-1).numpy(),
+                               atol=1e-5)
+
+
+def test_op_gradient_is_the_plain_backward_on_the_cpu():
+    """``swa_attention_op`` (model layout) differentiates through its
+    autograd Function; on the CPU the backward is the plain version, which
+    counts no launch."""
+    q, k, v, _, do = _bwd_inputs(13, 1, 4, 2, 256, 32, 128)
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_()
+              for x in (q, k, v)]
+    before = swa_attention_bwd_dq.launches
+    o = swa_attention_op(*leaves, window=128, scale=32 ** -0.5)
+    o.backward(do.transpose(1, 2))
+    assert swa_attention_bwd_dq.launches == before
+    exp = swa_attention_bwd_plain(q, k, v, o.detach().transpose(1, 2), do,
+                                  window=128, scale=32 ** -0.5)
+    for g, e in zip(leaves, exp):
+        torch.testing.assert_close(g.grad.transpose(1, 2), e, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("fn", [swa_attention_bwd_stats,
+                                swa_attention_bwd_dkdv,
+                                swa_attention_bwd_dq])
+def test_bwd_entries_raise_on_a_cpu_tensor(fn):
+    q, k, v, o, do = _bwd_inputs(14, 1, 2, 1, 256, 64, 128)
+    stats = () if fn is swa_attention_bwd_stats else \
+        swa_attention_bwd_stats_plain(q, k, o, do, window=128, scale=0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(q, k, v, o, do, *stats, window=128, scale=0.125)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fn(q, k, v, o, do, *stats, window=64, scale=0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window,D,G,KV", [
+    (256, 128, 64, 1, 2), (384, 128, 128, 4, 2), (512, 256, 128, 8, 1),
+    (256, 256, 64, 4, 2), (1024, 896, 128, 1, 2), (512, 256, 256, 4, 2),
+    (1024, 128, 256, 8, 1), (512, 384, 64, 8, 1)])
+def test_cuda_bwd_kernel_matches_plain(cuda, dtype, S, window, D, G, KV):
+    """The three launches at ``BWD_TOL``, read in place from (B, S, H, D)
+    views; two calls give the same bits; each entry counts its launch."""
+    q, k, v, o, do = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in _bwd_inputs(S + D + G, 2, G * KV, KV, S, D,
+                                           window, dtype, cuda))
+    counters = (swa_attention_bwd_stats, swa_attention_bwd_dkdv,
+                swa_attention_bwd_dq)
+    before = [f.launches for f in counters]
+    got = swa_attention_bwd(q, k, v, o, do, window=window, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == [n + 1 for n in before]
+    exp = swa_attention_bwd_plain(q, k, v, o, do, window=window,
+                                  scale=D ** -0.5)
+    atol, rtol = BWD_TOL[dtype]
+    for g, e in zip(got, exp):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, e, rtol=rtol,
+                                   atol=max(atol * float(e.float().abs().max()),
+                                            1e-5 if rtol else 0.0))
+    again = swa_attention_bwd(q, k, v, o, do, window=window, scale=D ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_gradient_flows_through_the_kernels(cuda, dtype):
+    """Through ``swa_attention_op``'s Function the attention's weights get
+    a gradient on the card (``wq.grad`` non-zero), from the backward
+    kernel, equal to the plain route's (the plain forward and backward
+    stood in for the kernels) within 1e-4 of its largest element in
+    float32 and 2e-2 in bf16 (the two forwards round o differently)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import attention as tattn
+    cfg = get_smoke("qwen3-4b").replace(
+        d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+        param_dtype=str(dtype)[6:], compute_dtype=str(dtype)[6:])
+    rng = np.random.default_rng(21)
+    shapes = {"wq": (256, 256), "wk": (256, 128), "wv": (256, 128),
+              "wo": (256, 256), "q_norm": (64,), "k_norm": (64,)}
+    p = {n: torch.from_numpy((rng.normal(size=s) / 16 + (len(s) == 1))
+                             .astype(np.float32)).to(cuda, dtype)
+         for n, s in shapes.items()}
+    x = torch.from_numpy(rng.normal(size=(2, 512, 256)).astype(
+        np.float32)).to(cuda, dtype)
+    pos = torch.arange(512, device=cuda).expand(2, 512)
+    dy = torch.from_numpy(rng.normal(size=(2, 512, 256)).astype(
+        np.float32)).to(cuda, dtype)
+
+    def grads():
+        leaves = {n: t.clone().requires_grad_() for n, t in p.items()}
+        tattn.attention_train(leaves, x, pos, cfg, window=128).backward(dy)
+        return {n: t.grad for n, t in leaves.items()}
+
+    before = swa_attention_bwd_dq.launches
+    kern = grads()
+    torch.cuda.synchronize()
+    assert swa_attention_bwd_dq.launches == before + 1
+    assert float(kern["wq"].abs().max()) > 0
+    from unittest import mock
+    with mock.patch.object(ops, "swa_attention", swa_attention_plain), \
+            mock.patch.object(ops, "swa_attention_bwd",
+                              swa_attention_bwd_plain):
+        plain = grads()
+    share = 1e-4 if dtype == torch.float32 else 2e-2
+    for n in p:
+        e = plain[n].float()
+        assert float((kern[n].float() - e).abs().max()) <= \
+            share * float(e.abs().max()), n
