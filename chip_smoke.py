@@ -201,28 +201,34 @@ raises and the script exits non-zero:
    power limit.
 
 16. drive the training path (``launch/train.py``'s loop: ``lm_loss``, the
-   train step, AdamW) with B2 forward and its backward kernel
-   (``csrc/swa_attention_bwd.cu``: row statistics, dk/dv, dq): (a) before
-   any model is resident, the backward's three launches against
-   ``swa_attention_bwd_plain`` at edge shapes (float32 and bf16; S 256 to
-   1024; window 128, 256 and S - 128; D 64/128/256; G 1/4/8), at 1 x 8,192
-   in float32 and at the path's shape (q (2, 32, 16384, 128), k/v (2, 8,
-   16384, 128), window 4096, bf16, read in place from (B, S, H, D) views):
-   float32 gradients within 1e-4 of their largest, bf16 at one ulp, the
-   row statistics within 1e-5, two calls the same bits; at the path's
-   shape each launch, the whole backward, the plain version and SDPA's
-   backward with the band as a mask are timed beside the bounds, and the
-   kernels' registers, spills and shared memory are recorded; (b) a
-   float32 copy of qwen3-4b-swa4096 at full width, 2 layers, 1 x 8,192
-   tokens, remat on: ``lm_loss`` and every gradient through the kernels
-   (the FMA forward, twice a layer, and the backward) against the same
-   model through the plain versions (the loss within 1e-5 relative, each
-   gradient within 1e-4 of its leaf's largest); (c) qwen3-4b-swa4096 at
-   full width and depth (36 layers, bf16 parameters, float32 AdamW state),
-   2 x 16,384 tokens, 3 steps, launch counters set to 0 just before and
-   read just after (a step: 72 launches of the wgmma kernel, 36 of each
-   backward launch, 0 of the FMA kernel; loss and grad norm finite),
-   printing ms a step, tok/s and peak memory; (d)
+   train step, AdamW) with B2 forward and its backward kernels, three
+   launches each (row statistics, dk/dv, dq), in the route that
+   ``swa._bwd_route`` names: ``csrc/swa_attention_bwd_wgmma.cu`` (bf16 at
+   D 64/128, on ``wgmma``) or ``csrc/swa_attention_bwd.cu`` (float32, and
+   bf16 at D 256, on FMA): (a) before any model is resident, the routed
+   backward against ``swa_attention_bwd_plain`` at edge shapes (float32
+   and bf16; S 256 to 1024; window 128, 256 and S - 128; D 64/128/256; G
+   1/4/8), at 1 x 8,192 in float32 and at the path's shape (q (2, 32,
+   16384, 128), k/v (2, 8, 16384, 128), window 4096, bf16, read in place
+   from (B, S, H, D) views): float32 gradients within 1e-4 of their
+   largest, bf16 at one ulp, the row statistics within 1e-5, two calls
+   the same bits; at the path's shape the wgmma route's launches and the
+   whole call, the FMA backward on the same input (held too), the plain
+   version and SDPA's backward with the band as a mask are timed beside
+   the bounds, and both kernels' registers, spills and shared memory are
+   recorded; (b) a float32 copy of qwen3-4b-swa4096 at full width, 2
+   layers, 1 x 8,192 tokens, remat on: ``lm_loss`` and every gradient
+   through the kernels (the FMA forward, twice a layer, and the FMA
+   backward) against the same model through the plain versions (the loss
+   within 1e-5 relative, each gradient within 1e-4 of its leaf's
+   largest); (b') the same copy in bf16 through the kernel route (the
+   wgmma forward and backward) against the plain route, each gradient
+   within 2e-2 of its leaf's largest; (c) qwen3-4b-swa4096 at full width
+   and depth (36 layers, bf16 parameters, float32 AdamW state), 2 x
+   16,384 tokens, 3 steps, launch counters set to 0 just before and read
+   just after (a step: 72 launches of the wgmma kernel, 36 of each wgmma
+   backward launch, 0 of the FMA kernels, forward or backward; loss and
+   grad norm finite), printing ms a step, tok/s and peak memory; (d)
    ``examples/train_e2e_torch.py --preset small``, whose restart replays
    the first run's losses bit for bit (``restart replay exact``).
 
@@ -368,6 +374,11 @@ BWD_EDGES = [(s_, w_, d_, g_, kv_)
 TRAIN_FP32 = {"n_layers": 2, "batch": 1, "seq": 8192}
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_SHARE = 1e-4
+# (b') the same copy in bf16 through the kernel route (the wgmma forward
+# and backward) against the plain route: each parameter's gradient within
+# 2e-2 of that leaf's largest element, the bound of the cuda test of
+# wq.grad (tests/test_torch_swa.py; the two forwards round o differently)
+TRAIN_BF16_GRAD_SHARE = 2e-2
 # (c) qwen3-4b-swa4096 at full width and depth (bf16 params, float32 AdamW
 # state), 2 x 16,384 tokens (cell 2's prefill tokens; train_4k's global
 # batch of 256 x 4,096 cut to what one card holds), 3 steps through
@@ -648,7 +659,8 @@ def swa_bwd_bound(B, H, KV, S, D, window, esize, products, stats=False,
 
 def bwd_ptxas(log):
     """Registers, spills and stack of each instantiation of the three
-    backward kernels in an ``nvcc -Xptxas -v`` log, keyed
+    kernels of either backward (FMA ``swa_bwd_*_kernel``, bf16 wgmma
+    ``swa_bwd_*_wgmma_kernel``) in an ``nvcc -Xptxas -v`` log, keyed
     ``kernel<dtype, D>``."""
     import re
     info, name = {}, None
@@ -656,11 +668,13 @@ def bwd_ptxas(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = None
-            k = re.search(r"swa_bwd_(stats|dkdv|dq)_kernel", m.group(1))
+            k = re.search(r"swa_bwd_(stats|dkdv|dq)(_wgmma)?_kernel",
+                          m.group(1))
             d = re.search(r"Li(\d+)E", m.group(1))
             if k and d:
-                t = "bf16" if "bfloat16" in m.group(1) else "f32"
-                name = f"swa_bwd_{k.group(1)}_kernel<{t}, {d.group(1)}>"
+                wg = k.group(2) or ""
+                t = "bf16" if wg or "bfloat16" in m.group(1) else "f32"
+                name = f"swa_bwd_{k.group(1)}{wg}_kernel<{t}, {d.group(1)}>"
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             info.setdefault(name, {})["registers"] = int(m.group(1))
         elif name and (m := re.search(
@@ -678,43 +692,14 @@ def share_err(got, exp):
     return err, err / max(float(exp.float().abs().max()), 1e-30)
 
 
-def check_swa_bwd(label, q, k, v, window, gen, *, time_it=False):
-    """The backward kernel's three entries vs the plain backward on the card
-    for one input (o from the routed forward kernel, do a seeded normal
-    draw): stats vs ``swa_attention_bwd_stats_plain`` within STATS_SHARE of
-    the largest, dq, dk, dv within BWD_F32_SHARE of the largest in float32
-    and at one ulp (SWA_TOL) in bf16; a second call the same bits. With
-    ``time_it`` the three entries, the whole backward, the plain version
-    and the library yardstick are timed, with the bounds. Returns a dict
-    of the numbers measured."""
+def hold_bwd(label, got, exp, stats, pstats, dtype):
+    """Hold a backward's (dq, dk, dv) and row statistics (lse, delta) to the
+    plain backward's: the statistics within STATS_SHARE of their largest,
+    the gradients within BWD_F32_SHARE of the largest in float32 and at one
+    ulp (SWA_TOL) in bf16. Returns the errors."""
     import torch
-    from repro_torch.kernels import (swa, swa_attention, swa_attention_bwd,
-                                     swa_attention_bwd_dkdv,
-                                     swa_attention_bwd_dq,
-                                     swa_attention_bwd_plain,
-                                     swa_attention_bwd_stats,
-                                     swa_attention_bwd_stats_plain)
-    B, H, S, D = q.shape
-    scale = D ** -0.5
-    kw = {"window": window, "scale": scale}
-    o = swa_attention(q, k, v, **kw)
-    do = torch.randn(q.shape, generator=gen, device=q.device,
-                     dtype=q.dtype)
-    entries = (swa_attention_bwd_stats, swa_attention_bwd_dkdv,
-               swa_attention_bwd_dq)
-    n0 = [f.launches for f in entries]
-    lse, delta = swa_attention_bwd_stats(q, k, v, o, do, **kw)
-    got = swa_attention_bwd(q, k, v, o, do, **kw)
-    torch.cuda.synchronize()
-    if [f.launches - n for f, n in zip(entries, n0)] != [2, 1, 1]:
-        raise AssertionError(f"{label}: the backward did not launch its "
-                             f"three kernels once each")
-    plse, pdelta = swa_attention_bwd_stats_plain(q, k, o, do, **kw)
-    exp = swa_attention_bwd_plain(q, k, v, o, do, **kw)
-    torch.cuda.synchronize()
-    row = {"label": label, "q": list(q.shape), "kv": list(k.shape),
-           "window": window, "dtype": str(q.dtype)}
-    for name, a, b in (("lse", lse, plse), ("delta", delta, pdelta)):
+    row = {}
+    for name, a, b in zip(("lse", "delta"), stats, pstats):
         err, share = share_err(a, b)
         if not torch.isfinite(a).all() or share > STATS_SHARE:
             raise AssertionError(f"{label}: {name} differs from the plain "
@@ -724,7 +709,7 @@ def check_swa_bwd(label, q, k, v, window, gen, *, time_it=False):
         if not torch.isfinite(a).all():
             raise AssertionError(f"{label}: {name} is not finite")
         err, share = share_err(a, b)
-        if q.dtype == torch.float32:
+        if dtype == torch.float32:
             if share > BWD_F32_SHARE:
                 raise AssertionError(f"{label}: {name} differs from the "
                                      f"plain backward by {share:.3e} of its "
@@ -734,23 +719,84 @@ def check_swa_bwd(label, q, k, v, window, gen, *, time_it=False):
             torch.testing.assert_close(a, b, atol=atol, rtol=rtol,
                                        msg=lambda m: f"{label} {name}: {m}")
         row[f"{name}_max_abs_err"], row[f"{name}_share"] = err, share
+    return row
+
+
+def check_swa_bwd(label, q, k, v, window, gen, *, time_it=False):
+    """The three entries of the backward kernel that ``swa._bwd_route``
+    names (wgmma for bf16 at D 64/128, FMA for float32 and bf16 at D 256)
+    vs the plain backward on the card for one input (o from the routed
+    forward kernel, do a seeded normal draw), held by ``hold_bwd``; a
+    second call the same bits. With ``time_it`` the three entries, the
+    whole backward, the plain version and the library yardstick are timed,
+    with the bounds; on a wgmma-routed input the FMA backward is also held
+    on it and timed, as the comparison. Returns a dict of the numbers
+    measured."""
+    import torch
+    from repro_torch.kernels import (swa, swa_attention, swa_attention_bwd,
+                                     swa_attention_bwd_plain,
+                                     swa_attention_bwd_stats_plain)
+    B, H, S, D = q.shape
+    scale = D ** -0.5
+    kw = {"window": window, "scale": scale}
+    o = swa_attention(q, k, v, **kw)
+    do = torch.randn(q.shape, generator=gen, device=q.device,
+                     dtype=q.dtype)
+    route = swa._bwd_route(q.dtype, D)
+    entries = swa._BWD_KERNELS[route]
+    counted = swa._BWD_KERNELS["wgmma"] + swa._BWD_KERNELS["fma"]
+    n0 = [f.launches for f in counted]
+    lse, delta = entries[0](q, k, v, o, do, **kw)
+    got = swa_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    want = [2, 1, 1] if route == "wgmma" else [0, 0, 0]
+    want += [0, 0, 0] if route == "wgmma" else [2, 1, 1]
+    if [f.launches - n for f, n in zip(counted, n0)] != want:
+        raise AssertionError(f"{label}: the backward did not launch the "
+                             f"{route} route's three kernels once each")
+    pstats = swa_attention_bwd_stats_plain(q, k, o, do, **kw)
+    exp = swa_attention_bwd_plain(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    row = {"label": label, "route": route, "q": list(q.shape),
+           "kv": list(k.shape), "window": window, "dtype": str(q.dtype)}
+    row.update(hold_bwd(label, got, exp, (lse, delta), pstats, q.dtype))
     again = swa_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{label}: two calls of the backward differ")
     row["bit_repeatable"] = True
-    del got, exp, again
+    del got, again
     if time_it:
         KV = k.shape[1]
         es = q.element_size()
+        stats_fn, dkdv_fn, dq_fn = entries
         row["ms"] = time_ms(lambda: swa_attention_bwd(q, k, v, o, do, **kw),
                             10)
-        row["stats_ms"] = time_ms(
-            lambda: swa_attention_bwd_stats(q, k, v, o, do, **kw), 10)
-        row["dkdv_ms"] = time_ms(lambda: swa_attention_bwd_dkdv(
+        row["stats_ms"] = time_ms(lambda: stats_fn(q, k, v, o, do, **kw), 10)
+        row["dkdv_ms"] = time_ms(lambda: dkdv_fn(
             q, k, v, o, do, lse, delta, **kw), 10)
-        row["dq_ms"] = time_ms(lambda: swa_attention_bwd_dq(
+        row["dq_ms"] = time_ms(lambda: dq_fn(
             q, k, v, o, do, lse, delta, **kw), 10)
+        if route == "wgmma":
+            # the FMA backward on the same bf16 input, held and timed
+            f_stats, f_dkdv, f_dq = swa._BWD_KERNELS["fma"]
+            flse, fdelta = f_stats(q, k, v, o, do, **kw)
+            fgot = (f_dq(q, k, v, o, do, flse, fdelta, **kw),
+                    *f_dkdv(q, k, v, o, do, flse, fdelta, **kw))
+            torch.cuda.synchronize()
+            row.update({f"fma_{k_}": v_ for k_, v_ in hold_bwd(
+                f"{label} (FMA backward)", fgot, exp, (flse, fdelta),
+                pstats, q.dtype).items()})
+            del fgot
+            row["fma_stats_ms"] = time_ms(
+                lambda: f_stats(q, k, v, o, do, **kw), 3)
+            row["fma_dkdv_ms"] = time_ms(lambda: f_dkdv(
+                q, k, v, o, do, flse, fdelta, **kw), 3)
+            row["fma_dq_ms"] = time_ms(lambda: f_dq(
+                q, k, v, o, do, flse, fdelta, **kw), 3)
+            row["fma_ms"] = sum(row[f"fma_{p_}_ms"]
+                                for p_ in ("stats", "dkdv", "dq"))
+            del flse, fdelta
         row["plain_ms"] = time_ms(
             lambda: swa_attention_bwd_plain(q, k, v, o, do, **kw), 3)
         row["stats_plain_ms"] = time_ms(
@@ -766,9 +812,15 @@ def check_swa_bwd(label, q, k, v, window, gen, *, time_it=False):
                 swa_bwd_bound(B, H, KV, S, D, window, es, prods, **kwb)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
+        if route == "wgmma":
+            # band products issued: stats s; dkdv s, dp, and dv and dk in
+            # DKDV_PARTS parts each; dq s, dp, and dq in DQ_PARTS parts
+            row["issued_products"] = 1 + 2 + 2 * 3 + 2 + 2
+            row["issued_tflop_per_s"] = (row["tflop_per_s"]
+                                         * row["issued_products"] / 5)
         row.update(sdpa_bwd_yardstick(q, k, v, do, window, scale))
     print(json.dumps(row), flush=True)
-    del o, do, lse, delta
+    del o, do, lse, delta, exp
     torch.cuda.synchronize()
     return row
 
@@ -861,12 +913,20 @@ def train_phase(gen, card, log):
         del q, k, v
     torch.cuda.empty_cache()
     out["bwd"] = rows[-1]
-    out["bwd_max_abs_err"] = {
-        n: max(r[f"{n}_max_abs_err"] for r in rows)
+    # each route's largest error: the wgmma route's edges and path, the FMA
+    # route's edges, float32 path and the FMA backward on the bf16 path
+    out["bwd_max_abs_err"] = {route: {
+        n: max([r[f"{n}_max_abs_err"] for r in rows if r["route"] == route]
+               + ([rows[-1][f"fma_{n}_max_abs_err"]] if route == "fma"
+                  else []))
         for n in ("lse", "delta", "dq", "dk", "dv")}
+        for route in ("wgmma", "fma")}
     out["bwd_build"] = {"ptxas": bwd_ptxas(log),
                         "dynamic_smem_bytes": {
-                            d_: swa.bwd_smem_bytes(d_) for d_ in swa.FMA_D}}
+                            d_: swa.bwd_smem_bytes(d_) for d_ in swa.FMA_D},
+                        "wgmma_dynamic_smem_bytes": {
+                            d_: swa.bwd_wgmma_smem_bytes(d_)
+                            for d_ in swa.WGMMA_BWD_D}}
     print(json.dumps({"swa_attention_bwd build": out["bwd_build"]}),
           flush=True)
     out["a_seconds"] = time.perf_counter() - t0
@@ -887,7 +947,7 @@ def train_phase(gen, card, log):
         0, TRAIN_FP32["batch"], TRAIN_FP32["seq"], cfg32.vocab_size).items()}
     names = ("swa_attention_fma", "swa_attention_wgmma",
              "swa_attention_bwd_stats", "swa_attention_bwd_dkdv",
-             "swa_attention_bwd_dq")
+             "swa_attention_bwd_dq") + swa.BWD_WGMMA_ENTRIES
     counted = [getattr(swa, n) for n in names]
     n0 = [f.launches for f in counted]
     kloss, kgrads = train_grads(cfg32, params, batch)
@@ -896,7 +956,8 @@ def train_phase(gen, card, log):
     L = cfg32.n_layers
     want = {"swa_attention_fma": 2 * L, "swa_attention_wgmma": 0,
             "swa_attention_bwd_stats": L, "swa_attention_bwd_dkdv": L,
-            "swa_attention_bwd_dq": L}
+            "swa_attention_bwd_dq": L, **dict.fromkeys(
+                swa.BWD_WGMMA_ENTRIES, 0)}
     if launched != want:
         raise AssertionError(f"(b) launches {launched}, want {want}")
     with mock.patch.object(ops, "swa_attention", swa_attention_plain), \
@@ -923,6 +984,47 @@ def train_phase(gen, card, log):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # (b') the same copy in bf16: the kernel route (the wgmma forward and
+    # backward) against the plain route
+    t0 = time.perf_counter()
+    cfg16 = cfg32.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = init_params(model_decls(cfg16),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         torch.bfloat16)
+    batch = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in synthetic_batch(
+        0, TRAIN_FP32["batch"], TRAIN_FP32["seq"], cfg16.vocab_size).items()}
+    n0 = [f.launches for f in counted]
+    kloss, kgrads = train_grads(cfg16, params, batch)
+    torch.cuda.synchronize()
+    launched = {n: f.launches - c for n, f, c in zip(names, counted, n0)}
+    want = {**dict.fromkeys(names, 0), "swa_attention_wgmma": 2 * L,
+            **dict.fromkeys(swa.BWD_WGMMA_ENTRIES, L)}
+    if launched != want:
+        raise AssertionError(f"(b') launches {launched}, want {want}")
+    with mock.patch.object(ops, "swa_attention", swa_attention_plain), \
+            mock.patch.object(ops, "swa_attention_bwd",
+                              swa_attention_bwd_plain):
+        ploss, pgrads = train_grads(cfg16, params, batch)
+    torch.cuda.synchronize()
+    shares = {p_: share_err(kgrads[p_], pgrads[p_])[1] for p_ in pgrads}
+    worst = max(shares.items(), key=lambda t: t[1])
+    out["bf16"] = {"layers": L, "tokens": [TRAIN_FP32["batch"],
+                                           TRAIN_FP32["seq"]],
+                   "loss": kloss, "plain_loss": ploss,
+                   "loss_rel_err": abs(kloss - ploss) / abs(ploss),
+                   "worst_grad_share": worst[1], "worst_grad_leaf": worst[0],
+                   "grad_shares": shares, "launches": launched,
+                   "seconds": time.perf_counter() - t0}
+    print(json.dumps({"train bf16": out["bf16"]}), flush=True)
+    if not (np.isfinite(kloss) and worst[1] <= TRAIN_BF16_GRAD_SHARE):
+        raise AssertionError(f"(b') the bf16 copy's gradients differ "
+                             f"between the kernels and the plain versions "
+                             f"by more than {TRAIN_BF16_GRAD_SHARE} of a "
+                             f"leaf's largest: {out['bf16']}")
+    del params, batch, kgrads, pgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (c) the slice: qwen3-4b-swa4096 at full size, 3 steps of train()
     cfg = effective_config(get_config(TRAIN["arch"]), SHAPES[TRAIN["shape"]])
     if (cfg.attention, cfg.window, cfg.n_layers, cfg.d_model,
@@ -941,8 +1043,7 @@ def train_phase(gen, card, log):
     tokens = TRAIN["batch"] * TRAIN["seq"]
     L = cfg.n_layers
     per_step = {"swa_attention": 2 * L, "swa_attention_wgmma": 2 * L,
-                "swa_attention_bwd_stats": L, "swa_attention_bwd_dkdv": L,
-                "swa_attention_bwd_dq": L}
+                **dict.fromkeys(swa.BWD_WGMMA_ENTRIES, L)}
     out["train"] = {
         "arch": cfg.name, "layers": L, "tokens": [TRAIN["batch"],
                                                   TRAIN["seq"]],
@@ -961,7 +1062,8 @@ def train_phase(gen, card, log):
            out["train"]["launches_per_step"]) or total.get(
                "swa_attention_fma") or total.get("ssd_chunked"):
         raise AssertionError(f"(c) want {per_step} a step and no FMA "
-                             f"launch; saw {out['train']['launches_per_step']}")
+                             f"launch, forward or backward; saw "
+                             f"{out['train']['launches_per_step']}")
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -2992,30 +3094,37 @@ def main():
           "train step) with B2 forward and its backward kernel")
     gc.collect()
     torch.cuda.empty_cache()
-    tr = train_phase(gen, card, logs.get("swa_attention_bwd", ""))
+    tr = train_phase(gen, card, logs.get("swa_attention_bwd_wgmma", "")
+                     + logs.get("swa_attention_bwd", ""))
     bwd, trl = tr["bwd"], tr["train"]["launches"]
+    # B2's backward: no TPU kernel; the reference's gradient is XLA's
+    # autodiff of the model zoo's banded attention. The wgmma route serves
+    # the bf16 train step (phase 16 (c)); the FMA one the float32 copy
+    # (phase 16 (b)), timed on the step's bf16 input as the comparison
     bwd_entries = [{
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/swa_attention_bwd.cu",
-        # B2's backward: no TPU kernel; the reference's gradient is XLA's
-        # autodiff of the model zoo's banded attention
+        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
         "replaces": "src/repro/kernels/swa.py:81",
         "gradient_of": "src/repro/models/attention.py:247",
-        "launches": trl[name],
-        "max_abs_err": max(tr["bwd_max_abs_err"][g] for g in grads),
-        "ms": bwd[f"{part}_ms"], "plain_ms": bwd[plain],
+        "launches": trl[name] if pre == "" else tr["fp32"]["launches"][name],
+        "train_launches": trl[name],
+        "max_abs_err": max(tr["bwd_max_abs_err"][route][g] for g in grads),
+        "ms": bwd[f"{pre}{part}_ms"], "plain_ms": bwd[plain],
         "bound_ms": bwd[f"{part}_bound_ms"],
         "bound_by": bwd[f"{part}_bound_by"],
         "library_ms": bwd["library_ms"], "library": bwd["library"],
-        "backward": {k: bwd[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}
-        for name, part, grads, plain in (
-            ("swa_attention_bwd_stats", "stats", ("lse", "delta"),
-             "stats_plain_ms"),
-            ("swa_attention_bwd_dkdv", "dkdv", ("dk", "dv"), "plain_ms"),
-            ("swa_attention_bwd_dq", "dq", ("dq",), "plain_ms"))]
+        "backward": {"ms": bwd[f"{pre}ms"], **{k: bwd[k] for k in (
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
+        for route, source, pre, names in (
+            ("wgmma", "swa_attention_bwd_wgmma", "", swa.BWD_WGMMA_ENTRIES),
+            ("fma", "swa_attention_bwd", "fma_", swa.BWD_ENTRIES))
+        for name, part, grads, plain in zip(
+            names, ("stats", "dkdv", "dq"),
+            (("lse", "delta"), ("dk", "dv"), ("dq",)),
+            ("stats_plain_ms", "plain_ms", "plain_ms"))]
     print(json.dumps({"train_phase": {k: tr[k] for k in
-                                      ("fp32", "e2e", "card")}}), flush=True)
+                                      ("fp32", "bf16", "e2e", "card")}}),
+          flush=True)
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",

@@ -10,8 +10,11 @@
     with TMA-fed stages (CUDA C++, ``csrc/swa_attention_wgmma.cu``), the
     bf16 prefill paths' at D 64, 128 and 256, and float32 FMA (CUDA C++,
     ``csrc/swa_attention.cu``) for float32; its backward (no TPU kernel:
-    the reference's is XLA's autodiff) in three float32-FMA launches
-    (CUDA C++, ``csrc/swa_attention_bwd.cu``), the training path's
+    the reference's is XLA's autodiff) in three launches, on bf16
+    ``wgmma`` with TMA-fed stages for bf16 at D 64 and 128 (CUDA C++,
+    ``csrc/swa_attention_bwd_wgmma.cu``), the training path's, and on
+    float32 FMA for float32 and bf16 at D 256 (CUDA C++,
+    ``csrc/swa_attention_bwd.cu``)
   * ``ssd`` — the Mamba2 SSD chunk scan, the port of the TPU kernel
     ``repro/kernels/ssd.py:ssd_chunked_pallas``: three chunk-parallel
     kernels on bf16 tensor cores (CUDA C++, ``csrc/ssd_chunk_tc.cu``), the
@@ -29,8 +32,9 @@ from .spmm import (csr_to_blocked_ell, spmm_blocked_ell,
 from .swa import (swa_attention, swa_attention_bwd, swa_attention_bwd_dkdv,
                   swa_attention_bwd_dq, swa_attention_bwd_plain,
                   swa_attention_bwd_stats, swa_attention_bwd_stats_plain,
-                  swa_attention_fma, swa_attention_plain,
-                  swa_attention_wgmma)
+                  swa_attention_bwd_wgmma_dkdv, swa_attention_bwd_wgmma_dq,
+                  swa_attention_bwd_wgmma_stats, swa_attention_fma,
+                  swa_attention_plain, swa_attention_wgmma)
 from .ssd import (ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state,
                   ssd_chunk_state_plain, ssd_chunked, ssd_chunked_fma,
                   ssd_chunked_plain, ssd_chunked_tc, ssd_state_scan,

@@ -3,8 +3,9 @@
 ``swa_attention_op`` takes (B, S, H, D) activations and hands the kernel
 (B, H, S, D) views of them, without a copy, through an autograd Function
 whose backward is the backward kernel (``swa.swa_attention_bwd``: the
-hand-written ``csrc/swa_attention_bwd.cu`` on the card, its plain version
-on the CPU). A sparse operand is converted
+hand-written ``csrc/swa_attention_bwd_wgmma.cu`` or
+``csrc/swa_attention_bwd.cu`` on the card, as ``swa._bwd_route`` names,
+its plain version on the CPU). A sparse operand is converted
 once and kept on the device: the paper's pre-loaded static graph data.
 ``CsrOperand`` (int32 CSR, the row-wise CSR kernel) is the one the GCN/GIN
 models and the serving pipeline multiply by for every request;

@@ -16,9 +16,16 @@ on the card:
     FMA (it also takes bf16, which ``swa_attention`` never sends it).
 
 The backward has no TPU kernel (the reference trains through XLA's
-autodiff of the model zoo's banded attention); on the card it is the
-hand-written ``csrc/swa_attention_bwd.cu``, three launches (row
-statistics, dk and dv, dq) on float32 FMA for both dtypes.
+autodiff of the model zoo's banded attention); on the card it is three
+hand-written launches (row statistics, dk and dv, dq), in one of two
+kernels that ``_bwd_route`` names:
+
+  * ``csrc/swa_attention_bwd_wgmma.cu``: bf16 with D 64 or 128, every
+    band product on bf16 ``wgmma``, the streamed tiles fed by TMA; the
+    training path's (D 128);
+  * ``csrc/swa_attention_bwd.cu``: float32 FMA, for float32 with D 64,
+    128 or 256 and bf16 with D 256 (no training path on the card).
+
 ``swa_attention_bwd`` takes them on a CUDA tensor and
 ``swa_attention_bwd_plain`` on a CPU tensor.
 
@@ -48,6 +55,7 @@ from . import _build
 NEG_INF = -1e30
 BLK = 128                        # the TPU kernel's block: S, window % BLK == 0
 WGMMA_D = (64, 128, 256)         # bf16 head dims of the wgmma kernel
+WGMMA_BWD_D = (64, 128)          # bf16 head dims of the wgmma backward
 FMA_D = (64, 128, 256)           # head dims of the FMA kernel
 PLAIN_CHUNK_BYTES = 256 << 20    # bound on one piece of the plain scores
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -370,33 +378,72 @@ def swa_attention(q, k, v, *, window: int, scale: float):
 
 
 # ---------------------------------------------------------------------------
-# The backward on the card: csrc/swa_attention_bwd.cu
+# The backward on the card: csrc/swa_attention_bwd_wgmma.cu (bf16, D 64 and
+# 128) and csrc/swa_attention_bwd.cu (float32 FMA)
 # ---------------------------------------------------------------------------
 BWD_ENTRIES = ("swa_attention_bwd_stats", "swa_attention_bwd_dkdv",
                "swa_attention_bwd_dq")
+BWD_WGMMA_ENTRIES = ("swa_attention_bwd_wgmma_stats",
+                     "swa_attention_bwd_wgmma_dkdv",
+                     "swa_attention_bwd_wgmma_dq")
+_BWD_SOURCES = {"fma": ("swa_attention_bwd", BWD_ENTRIES),
+                "wgmma": ("swa_attention_bwd_wgmma", BWD_WGMMA_ENTRIES)}
+
+
+def _bwd_route(dtype, D: int) -> str:
+    """The backward kernel that takes a CUDA input of this dtype and head
+    dim: ``"wgmma"`` (bf16, D 64 or 128) or ``"fma"`` (float32 with D 64,
+    128 or 256, and bf16 with D 256, where a consumer thread of the wgmma
+    design would hold 256 floats of dk and dv alone). Raises on what
+    neither takes."""
+    if dtype == torch.bfloat16 and D in WGMMA_BWD_D:
+        return "wgmma"
+    if dtype in _DTYPES and D in FMA_D:
+        return "fma"
+    raise ValueError(f"no SWA backward kernel takes {dtype} with D={D}: the "
+                     f"wgmma backward takes bf16 with D in {WGMMA_BWD_D}, "
+                     f"the FMA backward float32 or bf16 with D in {FMA_D}")
 
 
 @functools.cache
-def _bwd_fn(name: str):
-    fn = getattr(_build.load("swa_attention_bwd"), name)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+def _bwd_fn(route: str, which: int):
+    source, names = _BWD_SOURCES[route]
+    fn = getattr(_build.load(source), names[which])
+    fn.argtypes = ([ctypes.c_int] * (route == "fma")
+                   + [ctypes.c_void_p] * (10 + (route == "wgmma"))
                    + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
 
-def bwd_smem_bytes(D: int) -> dict:
-    """Dynamic shared memory of each backward launch at head dim D (builds
-    the kernel's library)."""
-    fn = _build.load("swa_attention_bwd").swa_attention_bwd_smem
+def _bwd_smem(route: str, D: int) -> dict:
+    source, names = _BWD_SOURCES[route]
+    fn = getattr(_build.load(source), f"{source}_smem")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return {name: fn(i, D) for i, name in enumerate(BWD_ENTRIES)}
+    return {name: fn(i, D) for i, name in enumerate(names)}
 
 
-def _bwd_cuda_check(name: str, q, k, v, o, do, window: int):
+def bwd_smem_bytes(D: int) -> dict:
+    """Dynamic shared memory of each FMA backward launch at head dim D
+    (builds the kernel's library)."""
+    return _bwd_smem("fma", D)
+
+
+def bwd_wgmma_smem_bytes(D: int) -> dict:
+    """Dynamic shared memory of each wgmma backward launch at head dim D
+    (builds the kernel's library)."""
+    return _bwd_smem("wgmma", D)
+
+
+def _bwd_cuda_check(route: str, which: int, q, k, v, o, do, window: int):
+    name = _BWD_SOURCES[route][1][which]
     _check_bwd(q, k, v, o, do, window)
     _check_tiles(q.shape[2], window)
+    if route == "wgmma" and (q.dtype != torch.bfloat16
+                             or q.shape[3] not in WGMMA_BWD_D):
+        raise ValueError(f"{name} takes bf16 with D in {WGMMA_BWD_D}; got "
+                         f"{q.dtype} with D={q.shape[3]}")
     if q.shape[3] not in FMA_D:
         raise ValueError(f"{name} takes D in {FMA_D}; got D={q.shape[3]}")
     if q.device.type != "cuda":
@@ -404,15 +451,16 @@ def _bwd_cuda_check(name: str, q, k, v, o, do, window: int):
                          "(swa_attention_bwd takes the plain version on the "
                          "CPU)")
     B, H = q.shape[:2]
-    if B * H > 65535:
+    if route == "fma" and B * H > 65535:
         raise ValueError(f"{name} takes B*H <= 65535; got {B * H}")
 
 
-def _bwd_launch(which: int, q, k, v, o, do, lse, delta, dq, dk, dv, *,
-                window: int, scale: float):
-    """One entry of the backward kernel; every tensor it reads or writes
-    must have a contiguous last dimension and 16-byte aligned rows."""
-    name = BWD_ENTRIES[which]
+def _bwd_launch(route: str, which: int, q, k, v, o, do, lse, delta, dq, dk,
+                dv, *, window: int, scale: float, work=None):
+    """One entry of a backward kernel; every tensor it reads or writes must
+    have a contiguous last dimension and 16-byte aligned rows. ``work`` is
+    the wgmma dk/dv launch's float32 workspace."""
+    name = _BWD_SOURCES[route][1][which]
     tensors = (q, k, v, o, do, dq, dk, dv)
     strides = []
     for label, t in zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"),
@@ -425,73 +473,135 @@ def _bwd_launch(which: int, q, k, v, o, do, lse, delta, dq, dk, dv, *,
         strides += t.stride()[:3]
     B, H, S, D = q.shape
     arr = (ctypes.c_int64 * 24)(*strides)
+    # the FMA entries take the dtype first, the wgmma ones a workspace
+    # pointer after delta (NULL where unread)
+    head = (_DTYPES[q.dtype],) if route == "fma" else ()
+    tail = () if route == "fma" else (
+        None if work is None else work.data_ptr(),)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _bwd_fn(name)(
-            _DTYPES[q.dtype], *(t.data_ptr() for t in tensors),
-            lse.data_ptr(), delta.data_ptr(), B, H, k.shape[1], S, D, window,
-            scale, ctypes.addressof(arr), stream)
+        err = _bwd_fn(route, which)(
+            *head, *(t.data_ptr() for t in tensors), lse.data_ptr(),
+            delta.data_ptr(), *tail, B, H, k.shape[1], S, D, window, scale,
+            ctypes.addressof(arr), stream)
+    if err < 0:
+        raise RuntimeError(
+            f"{name}: no cuTensorMapEncodeTiled in the driver" if err == -1
+            else f"{name}: the driver refused a TMA map, CUresult "
+            f"{-err - 1000}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def swa_attention_bwd_stats(q, k, v, o, do, *, window: int, scale: float):
-    """Launch 1 of the backward kernel on CUDA tensors: (lse, delta),
-    float32 (B, H, S), as ``swa_attention_bwd_stats_plain``."""
-    _bwd_cuda_check("swa_attention_bwd_stats", q, k, v, o, do, window)
+def _bwd_stats(route, q, k, v, o, do, window, scale):
+    _bwd_cuda_check(route, 0, q, k, v, o, do, window)
     lse, delta = (torch.empty(q.shape[:3], dtype=torch.float32,
                               device=q.device) for _ in range(2))
     # dq, dk, dv are not read: q, k, v stand in for their pointers
-    _bwd_launch(0, q, k, v, o, do, lse, delta, q, k, v, window=window,
-                scale=scale)
-    swa_attention_bwd_stats.launches += 1
+    _bwd_launch(route, 0, q, k, v, o, do, lse, delta, q, k, v,
+                window=window, scale=scale)
     return lse, delta
+
+
+def _bwd_dkdv(route, q, k, v, o, do, lse, delta, window, scale):
+    _bwd_cuda_check(route, 1, q, k, v, o, do, window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # the wgmma kernel's float32 sums of dk and dv (2 D a key)
+    work = None if route == "fma" else torch.empty(
+        2 * k.numel(), dtype=torch.float32, device=k.device)
+    _bwd_launch(route, 1, q, k, v, o, do, lse, delta, q, dk, dv,
+                window=window, scale=scale, work=work)
+    return dk, dv
+
+
+def _bwd_dq(route, q, k, v, o, do, lse, delta, window, scale):
+    _bwd_cuda_check(route, 2, q, k, v, o, do, window)
+    dq = torch.empty_like(q)
+    _bwd_launch(route, 2, q, k, v, o, do, lse, delta, dq, k, v,
+                window=window, scale=scale)
+    return dq
+
+
+def swa_attention_bwd_stats(q, k, v, o, do, *, window: int, scale: float):
+    """Launch 1 of the FMA backward kernel on CUDA tensors: (lse, delta),
+    float32 (B, H, S), as ``swa_attention_bwd_stats_plain``."""
+    out = _bwd_stats("fma", q, k, v, o, do, window, scale)
+    swa_attention_bwd_stats.launches += 1
+    return out
 
 
 def swa_attention_bwd_dkdv(q, k, v, o, do, lse, delta, *, window: int,
                            scale: float):
-    """Launch 2 of the backward kernel on CUDA tensors: (dk, dv) in k's
+    """Launch 2 of the FMA backward kernel on CUDA tensors: (dk, dv) in k's
     dtype and strides, from the row statistics of launch 1."""
-    _bwd_cuda_check("swa_attention_bwd_dkdv", q, k, v, o, do, window)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch(1, q, k, v, o, do, lse, delta, q, dk, dv, window=window,
-                scale=scale)
+    out = _bwd_dkdv("fma", q, k, v, o, do, lse, delta, window, scale)
     swa_attention_bwd_dkdv.launches += 1
-    return dk, dv
+    return out
 
 
 def swa_attention_bwd_dq(q, k, v, o, do, lse, delta, *, window: int,
                          scale: float):
-    """Launch 3 of the backward kernel on CUDA tensors: dq in q's dtype and
-    strides, from the row statistics of launch 1."""
-    _bwd_cuda_check("swa_attention_bwd_dq", q, k, v, o, do, window)
-    dq = torch.empty_like(q)
-    _bwd_launch(2, q, k, v, o, do, lse, delta, dq, k, v, window=window,
-                scale=scale)
+    """Launch 3 of the FMA backward kernel on CUDA tensors: dq in q's dtype
+    and strides, from the row statistics of launch 1."""
+    out = _bwd_dq("fma", q, k, v, o, do, lse, delta, window, scale)
     swa_attention_bwd_dq.launches += 1
-    return dq
+    return out
+
+
+def swa_attention_bwd_wgmma_stats(q, k, v, o, do, *, window: int,
+                                  scale: float):
+    """Launch 1 of the wgmma backward kernel on bf16 CUDA tensors with D 64
+    or 128: (lse, delta), float32 (B, H, S), as
+    ``swa_attention_bwd_stats_plain``."""
+    out = _bwd_stats("wgmma", q, k, v, o, do, window, scale)
+    swa_attention_bwd_wgmma_stats.launches += 1
+    return out
+
+
+def swa_attention_bwd_wgmma_dkdv(q, k, v, o, do, lse, delta, *, window: int,
+                                 scale: float):
+    """Launch 2 of the wgmma backward kernel on bf16 CUDA tensors: (dk, dv)
+    in k's strides, from the row statistics of launch 1."""
+    out = _bwd_dkdv("wgmma", q, k, v, o, do, lse, delta, window, scale)
+    swa_attention_bwd_wgmma_dkdv.launches += 1
+    return out
+
+
+def swa_attention_bwd_wgmma_dq(q, k, v, o, do, lse, delta, *, window: int,
+                               scale: float):
+    """Launch 3 of the wgmma backward kernel on bf16 CUDA tensors: dq in
+    q's strides, from the row statistics of launch 1."""
+    out = _bwd_dq("wgmma", q, k, v, o, do, lse, delta, window, scale)
+    swa_attention_bwd_wgmma_dq.launches += 1
+    return out
+
+
+# the three launches of each route, in order: stats, dk and dv, dq
+_BWD_KERNELS = {
+    "fma": (swa_attention_bwd_stats, swa_attention_bwd_dkdv,
+            swa_attention_bwd_dq),
+    "wgmma": (swa_attention_bwd_wgmma_stats, swa_attention_bwd_wgmma_dkdv,
+              swa_attention_bwd_wgmma_dq)}
 
 
 def swa_attention_bwd(q, k, v, o, do, *, window: int, scale: float):
     """Backward of ``swa_attention``: (dq, dk, dv) in the inputs' dtype,
     from the forward's inputs, its output o and the output's gradient do.
 
-    On a CUDA tensor: the three launches of ``csrc/swa_attention_bwd.cu``
-    on the current stream (float32 or bf16, D 64, 128 or 256, S and window
-    multiples of ``BLK``; o and do with the strides the kernel takes, see
-    ``_bwd_launch``). On a CPU tensor: ``swa_attention_bwd_plain``."""
+    On a CUDA tensor: the three launches of the kernel that ``_bwd_route``
+    names, on the current stream (S and window multiples of ``BLK``; o and
+    do with the strides the kernel takes, see ``_bwd_launch``). On a CPU
+    tensor: ``swa_attention_bwd_plain``."""
     _check_bwd(q, k, v, o, do, window)
     if q.device.type == "cpu":
         return swa_attention_bwd_plain(q, k, v, o, do, window=window,
                                        scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    lse, delta = swa_attention_bwd_stats(q, k, v, o, do, window=window,
-                                         scale=scale)
-    dk, dv = swa_attention_bwd_dkdv(q, k, v, o, do, lse, delta,
-                                    window=window, scale=scale)
-    dq = swa_attention_bwd_dq(q, k, v, o, do, lse, delta, window=window,
-                              scale=scale)
+    stats, dkdv, dq_fn = _BWD_KERNELS[_bwd_route(q.dtype, q.shape[3])]
+    lse, delta = stats(q, k, v, o, do, window=window, scale=scale)
+    dk, dv = dkdv(q, k, v, o, do, lse, delta, window=window, scale=scale)
+    dq = dq_fn(q, k, v, o, do, lse, delta, window=window, scale=scale)
     return dq, dk, dv
 
 
@@ -501,3 +611,6 @@ swa_attention_fma.launches = 0
 swa_attention_bwd_stats.launches = 0
 swa_attention_bwd_dkdv.launches = 0
 swa_attention_bwd_dq.launches = 0
+swa_attention_bwd_wgmma_stats.launches = 0
+swa_attention_bwd_wgmma_dkdv.launches = 0
+swa_attention_bwd_wgmma_dq.launches = 0

@@ -32,7 +32,10 @@ from ..data import TokenStream
 from ..device import resolve_device, synchronize
 from ..kernels import (ssd_chunked, swa_attention, swa_attention_bwd_dkdv,
                        swa_attention_bwd_dq, swa_attention_bwd_stats,
-                       swa_attention_fma, swa_attention_wgmma)
+                       swa_attention_bwd_wgmma_dkdv,
+                       swa_attention_bwd_wgmma_dq,
+                       swa_attention_bwd_wgmma_stats, swa_attention_fma,
+                       swa_attention_wgmma)
 from ..models.common import ModelConfig, init_params, param_count
 from ..models.lm import model_decls
 from ..optim import AdamWConfig, adamw_init
@@ -42,8 +45,9 @@ SEED = 0              # weights (torch.Generator on the device)
 LOG_EVERY = 5         # a [train] line every LOG_EVERY steps and the last
 # the kernel entries a training step can launch, each counting its launches
 COUNTERS = (swa_attention, swa_attention_wgmma, swa_attention_fma,
-            swa_attention_bwd_stats, swa_attention_bwd_dkdv,
-            swa_attention_bwd_dq, ssd_chunked)
+            swa_attention_bwd_wgmma_stats, swa_attention_bwd_wgmma_dkdv,
+            swa_attention_bwd_wgmma_dq, swa_attention_bwd_stats,
+            swa_attention_bwd_dkdv, swa_attention_bwd_dq, ssd_chunked)
 
 
 @dataclasses.dataclass

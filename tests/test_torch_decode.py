@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 import lm_decode_harness as h
 from repro_torch import configs as tconfigs
 from repro_torch.configs import SHAPES
@@ -31,6 +33,8 @@ from repro_torch.models import (init_params, lm, lm_params_from_numpy,
 from repro_torch.models import quant as tquant
 from repro_torch.models import ssm as tssm
 from repro_torch.models.common import tree_leaves
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32 = {"atol": 2e-5, "rtol": 2e-5}
 

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from replay_harness import Scenario
-from test_torch_cluster import assert_same_as_reference, pkg, replay
+from cluster_harness import assert_same_as_reference, pkg, replay
 
 SWA_4K = (4096, 256)
 

@@ -10,8 +10,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from replay_harness import Scenario
-from test_torch_cluster import (assert_same_as_reference, pkg, replay, run,
-                                snap_fields)
+from cluster_harness import (assert_same_as_reference, pkg, replay, run,
+                             snap_fields)
 
 def fresh_dyn(p):
     return p.core.DynamicScheduler(p.core.paper_system("pcie4"), p.perf,

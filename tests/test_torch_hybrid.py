@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 import lm_decode_harness as h
 from repro_torch import configs as tconfigs
 from repro_torch.launch.serve_prefill import serve_prefill
@@ -27,6 +29,8 @@ from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import (init_params, lm, lm_params_from_numpy,
                                 model_decls, param_count)
 from repro_torch.models.common import tree_leaves
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

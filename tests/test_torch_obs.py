@@ -32,7 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_cluster import _cli, _minus, pkg
+from cluster_harness import _cli, _minus, pkg
 
 REPO = Path(__file__).resolve().parent.parent
 ROOTS = ("repro", "repro_torch")

@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import (ssd, ssd_chunk_out, ssd_chunk_out_plain,
                                  ssd_chunk_state, ssd_chunk_state_plain,
@@ -35,6 +37,8 @@ from repro_torch.launch.serve_prefill import serve_prefill
 from repro_torch.launch.steps import effective_config, make_prefill_step
 from repro_torch.models import init_params, lm_params_from_numpy, model_decls
 from repro_torch.models import ssm as tssm
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BF16_ULP = {"atol": 1e-5, "rtol": 2 ** -7}
 

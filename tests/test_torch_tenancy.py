@@ -5,7 +5,7 @@ the tenant cells of benchmarks/scenario_matrix.py, docs/tenancy.md).
 Each check gives the same inputs to both packages and compares the
 results exactly: parsed specs, batch order and WFQ clocks, queue
 admission, tenanted arrivals sample for sample, and whole tenanted
-cluster runs (``test_torch_cluster.run``: byte-identical event JSONL,
+cluster runs (``cluster_harness.run``: byte-identical event JSONL,
 equal snapshots but the wall-clock placement times, equal sorted
 latencies). The torch backend runs with ``device="cpu"``; the ``cuda``
 twins run the tenanted stream on the card and skip here."""
@@ -20,8 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from replay_harness import Scenario
-from test_torch_cluster import (TORCH_CPU, _cli, _minus,
-                                assert_same_as_reference, pkg, replay)
+from cluster_harness import (TORCH_CPU, _cli, _minus,
+                             assert_same_as_reference, pkg, replay)
 
 REPO = Path(__file__).resolve().parent.parent
 ROOTS = ("repro", "repro_torch")

@@ -4,9 +4,9 @@ and every gradient against ``jax.grad`` of the reference's ``lm_loss``
 through the banded op's backward; deepseek's MLA and routed experts with
 the router's aux term; the vlm and encdec losses), the train step over
 three steps with and without gradient accumulation against the
-reference's ``make_train_step``, the restart replay of the port's train
-loop bit for bit, the example and the train CLI on the CPU, and the SSD's
-autograd on either device.
+reference's ``make_train_step``, the train CLI on the CPU, and the SSD's
+autograd on either device (the restart replays of the train loop and of
+the example are in tests/test_torch_train_restart.py).
 
 The reference runs compiled under a (1, 1) ("data", "model") mesh of
 automatic axes (its MoE layer is a ``shard_map``), in float32, on its
@@ -18,14 +18,12 @@ relative and each gradient within 1e-4 of its leaf's largest element (the
 same math in another order); after three AdamW steps the parameters
 within 1e-5 of each leaf's largest.
 """
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 import lm_decode_harness as h
 from repro_torch import configs as tconfigs
@@ -37,7 +35,8 @@ from repro_torch.models import lm_loss, lm_params_from_numpy
 from repro_torch.models.common import tree_leaves
 from repro_torch.optim import AdamWConfig, adamw_init
 
-REPO = Path(__file__).resolve().parent.parent
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 LOSS_RTOL = 1e-5
 GRAD_SHARE = 1e-4
 
@@ -201,27 +200,6 @@ def test_three_train_steps_match_reference(jref, accum):
         assert np.abs(t.numpy() - r).max() <= 1e-5 * np.abs(r).max(), k
 
 
-def test_train_loop_restart_replays_bit_for_bit(tmp_path):
-    """Checkpoints at steps 2 and 4, a crash after step 5, a restart to 8:
-    steps 5..7 equal an uninterrupted run's losses and parameters bit for
-    bit."""
-    cfg = tconfigs.get_smoke("qwen3-4b").replace(attention="swa", window=32)
-    kw = dict(batch=2, seq=128, ckpt_every=2, device="cpu")
-    whole = train_cli.train(cfg, steps=8, **kw)
-    first = train_cli.train(cfg, steps=6, ckpt_dir=tmp_path, **kw)
-    again = train_cli.train(cfg, steps=8, ckpt_dir=tmp_path, **kw)
-    assert again.start == 5
-    assert [first.losses[s] for s in range(6)] == \
-        [whole.losses[s] for s in range(6)]
-    assert [again.losses[s] for s in range(5, 8)] == \
-        [whole.losses[s] for s in range(5, 8)]
-    for (_, a), (_, b) in zip(tree_leaves(again.params),
-                              tree_leaves(whole.params)):
-        assert torch.equal(a, b)
-    assert whole.launches == {s: {} for s in range(8)}   # plain on the CPU
-    assert all(np.isfinite(list(whole.grad_norms.values())))
-
-
 def test_train_cli_smoke_on_cpu(capsys):
     train_cli.main(["--arch", "qwen3-4b", "--smoke", "--steps", "6",
                     "--device", "cpu"])
@@ -229,16 +207,6 @@ def test_train_cli_smoke_on_cpu(capsys):
     assert "[train] step     0 loss" in out
     assert "[train] step     5 loss" in out
     assert "[train] done" in out
-
-
-def test_example_train_e2e_torch_restart_on_cpu(tmp_path):
-    r = subprocess.run(
-        [sys.executable, str(REPO / "examples" / "train_e2e_torch.py"),
-         "--steps", "24", "--ckpt-every", "8", "--device", "cpu",
-         "--ckpt-dir", str(tmp_path)],
-        capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-2000:]
-    assert "restart replay exact on 3 overlap steps" in r.stdout
 
 
 def test_layers_split_each_stacked_leaf_once():

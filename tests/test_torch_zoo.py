@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 import lm_decode_harness as h
 from repro_torch import configs as tconfigs
 from repro_torch.launch import serve as serve_cli
@@ -34,6 +36,8 @@ from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import (init_params, lm, lm_params_from_numpy,
                                 model_decls, param_count, quant)
 from repro_torch.models.common import tree_leaves
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ZOO = ["deepseek-v2-236b", "deepseek-v3-671b", "seamless-m4t-large-v2",
        "paligemma-3b"]
