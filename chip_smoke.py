@@ -232,6 +232,38 @@ raises and the script exits non-zero:
    ``examples/train_e2e_torch.py --preset small``, whose restart replays
    the first run's losses bit for bit (``restart replay exact``).
 
+17. drive the training path of the ssm family: mamba2-780m through
+   ``launch/train.py``'s loop with B3's forward (the tensor-core route in
+   bf16, the FMA kernel in float32) and its backward kernel,
+   ``csrc/ssd_chunk_bwd.cu``, three launches (bK1 each chunk's own state
+   gradient, bK2 the reverse scan over chunks, bK3 the per-chunk
+   gradients), behind ``ssd._SsdChunked``: (a) before any model is
+   resident, the backward against ``ssd_chunked_bwd_plain`` and each
+   launch against its plain stage, on strided x/B/C views as
+   ``mamba_block`` passes them, from the routed forward's own la and
+   entering states, at edge shapes (float32 and bf16; L = Q and 4Q; Q 64
+   and 256; N 64 and 128; H 1 and 3; with and without init_state; a zero
+   and a non-zero final-state gradient), at the path's shape (b 16, L
+   4,096, H 48, P 64, N 128, chunk 256, bf16) and at zamba2-7b's (b 1, L
+   8,192, H 112, N 64): float32 outputs within 1e-4 of their largest, bf16
+   outputs at one ulp of the plain float32 backward rounded once, two
+   calls the same bits; at the two large shapes each launch, the call,
+   the plain backward and each plain stage are timed beside the bounds
+   (no PyTorch call computes the scan's gradient, so there is no library
+   yardstick), and the kernels' registers, spills and shared memory are
+   recorded; (b) a float32 copy of mamba2-780m at full width, 2 layers, 1
+   x 8,192 tokens, remat on: ``lm_loss`` and every gradient through the
+   kernels (the FMA forward, twice a layer, and the backward kernel)
+   against the plain versions (the loss within 1e-5 relative, each
+   gradient within 1e-4 of its leaf's largest); (b') the same copy in bf16
+   (the tensor-core forward) and zamba2-7b at full width, 3 layers (one
+   a-m-m group), 1 x 8,192, each gradient within 2e-2 of its leaf's
+   largest; (c) mamba2-780m at full width and depth (48 layers, bf16
+   parameters, float32 AdamW state), 16 x 4,096 tokens, 3 steps, launch
+   counters set to 0 just before and read just after (a step: 96 forward
+   calls on the tensor-core route, 48 of each backward launch, 0 FMA;
+   loss and grad norm finite), printing ms a step, tok/s and peak memory.
+
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -385,6 +417,29 @@ TRAIN_BF16_GRAD_SHARE = 2e-2
 # launch/train.py's loop; (d) examples/train_e2e_torch.py --preset small
 TRAIN = {"arch": "qwen3-4b", "shape": "long_500k", "batch": 2, "seq": 16384,
          "steps": 3}
+# phase 17: training mamba2-780m. (a) the B3 backward kernel's three
+# launches against the plain backward: edge shapes (L = Q and 4Q; Q 64 and
+# 256; N 64 and 128; H 1 and 3; with and without init_state; a zero and a
+# non-zero final-state gradient; float32 and bf16; strided x/B/C views),
+# the path's shape and zamba2-7b's; gates as phase 16 (a): float32 outputs
+# within 1e-4 of their largest plain element (BWD_F32_SHARE), bf16 outputs
+# one ulp of the plain float32 backward rounded once (SSD_TOL), two calls
+# the same bits
+SSD_BWD_EDGES = [(q_, l_ * q_, n_, h_) for q_ in (64, 256) for l_ in (1, 4)
+                 for n_ in (64, 128) for h_ in (1, 3)]
+SSD_BWD_PATH = {"b": 16, "L": 4096, "H": 48, "N": 128, "Q": 256}
+SSD_BWD_ZAMBA = {"b": 1, "L": 8192, "H": 112, "N": 64, "Q": 256}
+# (b) a float32 copy of mamba2-780m at full width, 2 layers, 1 x 8,192
+# tokens, remat on, kernels (FMA forward, the backward kernel) against the
+# plain versions, phase 16 (b)'s gates; (b') the same copy in bf16 (the
+# tensor-core forward) and zamba2-7b at full width, 3 layers (one a-m-m
+# group), 1 x 8,192, each gradient within 2e-2 of its leaf's largest
+SSD_TRAIN_COPY = {"n_layers": 2, "batch": 1, "seq": 8192}
+ZAMBA_TRAIN_COPY = {"n_layers": 3, "batch": 1, "seq": 8192}
+# (c) mamba2-780m at full width and depth (bf16 params, float32 AdamW
+# state), 16 x 4,096 tokens: train_4k's global batch of 256 x 4,096 cut by
+# batch to what one card holds; 3 steps through launch/train.py's loop
+SSD_TRAIN = {"arch": "mamba2-780m", "batch": 16, "seq": 4096, "steps": 3}
 
 
 def phase(name):
@@ -1084,6 +1139,370 @@ def train_phase(gen, card, log):
         raise AssertionError("(d) the example did not replay exactly")
     out["e2e"] = {"summary": text.strip().splitlines()[-1],
                   "seconds": time.perf_counter() - t0}
+    return out
+
+
+def ssd_bwd_bound(x, B, Q, part="all"):
+    """Least time for the chunk scan's backward (``part`` "all") or one of
+    its launches ("dstate", "scan", "grads") on these inputs: the bytes of
+    each input read once and each output written once (the whole: x, dy,
+    B, C, dts, la and the entering states in, dx, dB, dC, d dts, d da and
+    init_state's gradient out; a launch also its workspaces R and g),
+    against its products (bK1 dy^T C per head; bK3 C B^T, (sum_h dG) B and
+    (sum_h dG)^T C on the causal triangle once per (batch, chunk), and per
+    head dW and W^T dy on the triangle, C S^T, dy S, g B and x g), at the
+    dense bf16 tensor-core rate for bf16 inputs, the CUDA cores' float32
+    rate for float32."""
+    import torch
+    b, L, H, P = x.shape
+    N, nc = B.shape[-1], L // Q
+    tri = Q * (Q + 1) // 2
+    es = x.element_size()
+    xs, bs, rows = b * L * H * P * es, b * L * N * es, b * L * H * 4
+    st, fin = b * nc * H * P * N * 4, b * H * P * N * 4
+    f1 = 2.0 * b * nc * H * Q * P * N
+    f2 = 3.0 * b * nc * H * P * N
+    f3 = 2.0 * b * nc * (3 * tri * N + H * (2 * tri * P + 4 * Q * P * N))
+    nbytes, flops = {
+        "all": (3 * xs + 4 * bs + 4 * rows + st + fin, f1 + f2 + f3),
+        "dstate": (xs + bs + rows + st, f1),
+        "scan": (3 * st + fin + b * nc * H * 4 * 2, f2),
+        "grads": (3 * xs + 4 * bs + 4 * rows + 2 * st, f3)}[part]
+    rate = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def ssd_bwd_ptxas(log):
+    """Registers, spills and stack of each instantiation of the backward's
+    three kernels in an ``nvcc -Xptxas -v`` log, keyed
+    ``kernel<dtype, N>``."""
+    import re
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            k = re.search(r"(ssd_bwd_(dstate|scan|grads)_kernel)", m.group(1))
+            n = re.search(r"Li(\d+)E", m.group(1))
+            if k and n:
+                t = ("bf16" if "bfloat16" in m.group(1) else "f32"
+                     if "IfLi" in m.group(1) else "any")
+                name = f"{k.group(1)}<{t}, {n.group(1)}>"
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            info.setdefault(name, {})["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                info[name]["static_smem"] = int(sm.group(1))
+        elif name and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", line)):
+            info.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+    return info
+
+
+SSD_BWD_NAMES = ("dx", "ddts", "dda", "dB", "dC", "dD", "dinit")
+
+
+def hold_ssd_bwd(label, got, exp, names=SSD_BWD_NAMES):
+    """Hold backward outputs to the plain ones: bf16 at one ulp of the
+    plain float32 rounded once (SSD_TOL), float32 within BWD_F32_SHARE of
+    the largest plain element. Returns the max abs errors by name."""
+    import torch
+    row = {}
+    for name, a, b in zip(names, got, exp):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {name} is not finite")
+        err, share = share_err(a, b)
+        if a.dtype == torch.bfloat16:
+            atol, rtol = SSD_TOL["bfloat16"]
+            torch.testing.assert_close(a, b.to(torch.bfloat16), atol=atol,
+                                       rtol=rtol,
+                                       msg=lambda m: f"{label} {name}: {m}")
+        elif share > BWD_F32_SHARE:
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 f"backward by {share:.3e} of its largest "
+                                 f"(limit {BWD_F32_SHARE})")
+        row[name] = err
+    return row
+
+
+def check_ssd_bwd(label, gen, b, L, H, N, Q, dtype, *, init=False,
+                  dstate=False, slow=False, time_it=False):
+    """The backward kernel's three launches (``ssd.ssd_chunked_bwd``) on
+    strided x/B/C views, from the routed forward's own la and entering
+    states, against ``ssd_chunked_bwd_plain``; each launch against its
+    plain stage on the plain stage's inputs; a second call the same bits.
+    With ``time_it`` the call, each launch, the plain backward and each
+    plain stage are timed, with the bounds. Returns a dict of the
+    numbers."""
+    import torch
+    from repro_torch.kernels import ssd
+    dev = torch.device("cuda", 0)
+    P = ssd.BWD_P
+    x, dt, B, C, A_log, D = ssd_inputs(gen, dev, b, L, H, P, N, dtype, slow)
+    D = D + 1
+    dts, da = ssd._discretize(dt, A_log)
+    s0 = (torch.randn((b, H, P, N), generator=gen, device=dev) if init
+          else None)
+    dS = (torch.randn((b, H, P, N), generator=gen, device=dev) if dstate
+          else None)
+    dy = torch.randn(x.shape, generator=gen, device=dev, dtype=dtype)
+    _, _, la, s_in = ssd.ssd_chunked_fwd(x, dts, da, B, C, D, chunk=Q,
+                                         init_state=s0)
+    fns = ssd._BWD_KERNELS["fma"]
+    n0 = [f.launches for f in fns]
+    got = ssd.ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dS, chunk=Q)
+    torch.cuda.synchronize()
+    if [f.launches - n for f, n in zip(fns, n0)] != [1, 1, 1]:
+        raise AssertionError(f"{label}: the backward did not launch its "
+                             f"three kernels once each")
+    exp = ssd.ssd_chunked_bwd_plain(x, dts, da, B, C, D, dy, dS, chunk=Q,
+                                    init_state=s0)
+    torch.cuda.synchronize()
+    row = {"label": label, "x": list(x.shape), "N": N, "chunk": Q,
+           "dtype": str(dtype), "init_state": init, "dstate": dstate}
+    row.update(hold_ssd_bwd(label, got, exp))
+    # each launch against its plain stage, on the plain stage's inputs
+    R = ssd.ssd_chunk_bwd_dstate(dy, C, la, chunk=Q)
+    pR = ssd.ssd_chunk_bwd_dstate_plain(dy, C, la, chunk=Q)
+    g, dinit, dle = ssd.ssd_chunk_bwd_scan(la, pR.clone(), s_in, chunk=Q,
+                                           dstate=dS)
+    pg, pdinit, pdle = ssd.ssd_chunk_bwd_scan_plain(la, pR, s_in, chunk=Q,
+                                                    dstate=dS)
+    grads = ssd.ssd_chunk_bwd_grads(x, dts, la, B, C, D, dy, s_in, pg, pdle,
+                                    chunk=Q)
+    pgrads = ssd.ssd_chunk_bwd_grads_plain(x, dts, la, B, C, D, dy, s_in, pg,
+                                           pdle, chunk=Q)
+    torch.cuda.synchronize()
+    row["stages"] = {
+        "ssd_chunk_bwd_dstate": hold_ssd_bwd(f"{label} bK1", (R,), (pR,),
+                                             ("R",)),
+        "ssd_chunk_bwd_scan": hold_ssd_bwd(
+            f"{label} bK2", (g, dinit, dle), (pg, pdinit, pdle),
+            ("g", "dinit", "dle")),
+        "ssd_chunk_bwd_grads": hold_ssd_bwd(f"{label} bK3", grads, pgrads)}
+    del R, pR, g, dinit, dle, pg, pdinit, pdle, grads, pgrads
+    again = ssd.ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dS, chunk=Q)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{label}: two calls of the backward differ")
+    row["bit_repeatable"] = True
+    del again
+    if time_it:
+        dstate_fn, scan_fn, grads_fn = fns
+        kw = {"chunk": Q}
+        row["ms"] = time_ms(lambda: ssd.ssd_chunked_bwd(
+            x, dts, la, B, C, D, s_in, dy, dS, **kw), 5)
+        R = dstate_fn(dy, C, la, **kw)
+        g, _, dle = scan_fn(la, R.clone(), s_in, dstate=dS, **kw)
+        row["stage_ms"] = {
+            "ssd_chunk_bwd_dstate": time_ms(
+                lambda: dstate_fn(dy, C, la, **kw), 5),
+            "ssd_chunk_bwd_scan": time_ms(
+                lambda: scan_fn(la, R, s_in, dstate=dS, **kw), 5),
+            "ssd_chunk_bwd_grads": time_ms(
+                lambda: grads_fn(x, dts, la, B, C, D, dy, s_in, g, dle, **kw),
+                5)}
+        row["plain_ms"] = time_ms(lambda: ssd.ssd_chunked_bwd_stages_plain(
+            x, dts, la, B, C, D, s_in, dy, dS, **kw), 2)
+        pR = ssd.ssd_chunk_bwd_dstate_plain(dy, C, la, **kw)
+        row["stage_plain_ms"] = {
+            "ssd_chunk_bwd_dstate": time_ms(
+                lambda: ssd.ssd_chunk_bwd_dstate_plain(dy, C, la, **kw), 2),
+            "ssd_chunk_bwd_scan": time_ms(
+                lambda: ssd.ssd_chunk_bwd_scan_plain(la, pR, s_in,
+                                                     dstate=dS, **kw), 2),
+            "ssd_chunk_bwd_grads": time_ms(
+                lambda: ssd.ssd_chunk_bwd_grads_plain(
+                    x, dts, la, B, C, D, dy, s_in, g, dle, **kw), 2)}
+        row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
+            ssd_bwd_bound(x, B, Q)
+        row["stage_bound"] = {
+            f"ssd_chunk_bwd_{p_}": dict(zip(
+                ("bound_ms", "bound_by", "bytes", "flops"),
+                ssd_bwd_bound(x, B, Q, p_)))
+            for p_ in ("dstate", "scan", "grads")}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
+        row["library_ms"] = None
+        del R, g, dle, pR
+    print(json.dumps(row), flush=True)
+    del x, dt, B, C, dy, got, exp, la, s_in
+    torch.cuda.synchronize()
+    return row
+
+
+def ssd_copy_grads(label, cfg, dev, tokens, want_kernel, share,
+                   loss_rtol=None):
+    """``lm_loss`` and every gradient of ``cfg`` (drawn from seed 0 on the
+    card) through the kernels and through the plain versions (the plain
+    forward and backward stood in for them); holds the launches to
+    ``want_kernel`` and each gradient to ``share`` of its leaf's largest
+    (the loss to ``loss_rtol`` relative where given). Returns the
+    numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ssd
+    from repro_torch.models import init_params, model_decls
+    t0 = time.perf_counter()
+    params = init_params(model_decls(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         cfg.pdtype)
+    batch = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in synthetic_batch(
+        0, tokens[0], tokens[1], cfg.vocab_size).items()}
+    names = ("ssd_chunked_fma", "ssd_chunked_tc") + ssd.BWD_ENTRIES
+    counted = [getattr(ssd, n) for n in names]
+    n0 = [f.launches for f in counted]
+    kloss, kgrads = train_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    launched = {n: f.launches - c for n, f, c in zip(names, counted, n0)}
+    if launched != want_kernel:
+        raise AssertionError(f"{label}: launches {launched}, want "
+                             f"{want_kernel}")
+    with mock.patch.object(ssd, "ssd_chunked_fwd",
+                           ssd.ssd_chunked_fwd_plain), \
+            mock.patch.object(ssd, "ssd_chunked_bwd",
+                              ssd.ssd_chunked_bwd_stages_plain):
+        ploss, pgrads = train_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    shares = {p_: share_err(kgrads[p_], pgrads[p_])[1] for p_ in pgrads}
+    worst = max(shares.items(), key=lambda t: t[1])
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "tokens": list(tokens),
+           "dtype": cfg.param_dtype, "loss": kloss, "plain_loss": ploss,
+           "loss_rel_err": abs(kloss - ploss) / abs(ploss),
+           "worst_grad_share": worst[1], "worst_grad_leaf": worst[0],
+           "grad_shares": shares, "launches": launched,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({label: row}), flush=True)
+    if not (np.isfinite(kloss) and worst[1] <= share
+            and (loss_rtol is None or row["loss_rel_err"] <= loss_rtol)):
+        raise AssertionError(f"{label}: the loss or gradients differ "
+                             f"between the kernels and the plain versions: "
+                             f"{row}")
+    del params, batch, kgrads, pgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssd_train_phase(gen, card, log):
+    """Phase 17: training mamba2-780m with B3's forward and its backward
+    kernel (see the module docstring). Returns a dict of what it
+    measured."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd
+    from repro_torch.launch import train as train_mod
+    dev = torch.device("cuda", 0)
+    out = {"card": card}
+
+    # (a) the backward kernel, before any model is resident
+    t0 = time.perf_counter()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (q_, l_, n_, h_) in enumerate(SSD_BWD_EDGES):
+            rows.append(check_ssd_bwd(
+                f"L={l_} chunk={q_} N={n_} H={h_} {dtype}", gen, 2, l_, h_,
+                n_, q_, dtype, init=bool(i & 1), dstate=bool(i & 2),
+                slow=bool(i & 4)))
+    for name, sh in (("path", SSD_BWD_PATH), ("zamba2", SSD_BWD_ZAMBA)):
+        rows.append(check_ssd_bwd(
+            f"{name} b={sh['b']} L={sh['L']} H={sh['H']} N={sh['N']} bf16 "
+            f"strided views", gen, sh["b"], sh["L"], sh["H"], sh["N"],
+            sh["Q"], torch.bfloat16, time_it=True))
+        out[name] = rows[-1]
+        torch.cuda.empty_cache()
+    out["bwd_max_abs_err"] = {
+        n: max(r[n] for r in rows) for n in SSD_BWD_NAMES}
+    out["stage_max_abs_err"] = {
+        st_: max(max(r["stages"][st_].values()) for r in rows)
+        for st_ in ssd.BWD_ENTRIES}
+    out["bwd_build"] = {"ptxas": ssd_bwd_ptxas(log), "dynamic_smem_bytes": {
+        n_: ssd.bwd_smem_bytes(n_) for n_ in ssd.KERNEL_N}}
+    print(json.dumps({"ssd_chunk_bwd build": out["bwd_build"]}), flush=True)
+    out["a_seconds"] = time.perf_counter() - t0
+
+    # (b) a float32 copy at full width, 2 layers; (b') the same in bf16,
+    # and zamba2-7b's first a-m-m group in bf16
+    L = SSD_TRAIN_COPY["n_layers"]
+    cfg32 = get_config(SSD_TRAIN["arch"]).replace(
+        n_layers=L, param_dtype="float32", compute_dtype="float32")
+    if (cfg32.family, cfg32.d_model, cfg32.ssm_state, cfg32.ssm_chunk,
+            cfg32.ssm_heads, cfg32.remat) != ("ssm", 1536, 128, 256, 48,
+                                              True):
+        raise AssertionError(f"not the mamba2-780m config: {cfg32}")
+    tokens = (SSD_TRAIN_COPY["batch"], SSD_TRAIN_COPY["seq"])
+    bwd1 = dict.fromkeys(ssd.BWD_ENTRIES, L)
+    out["fp32"] = ssd_copy_grads(
+        "train mamba2 fp32", cfg32, dev, tokens,
+        {"ssd_chunked_fma": 2 * L, "ssd_chunked_tc": 0, **bwd1},
+        TRAIN_GRAD_SHARE, TRAIN_LOSS_RTOL)
+    cfg16 = cfg32.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    out["bf16"] = ssd_copy_grads(
+        "train mamba2 bf16", cfg16, dev, tokens,
+        {"ssd_chunked_fma": 0, "ssd_chunked_tc": 2 * L, **bwd1},
+        TRAIN_BF16_GRAD_SHARE)
+    zcfg = get_config("zamba2-7b").replace(
+        n_layers=ZAMBA_TRAIN_COPY["n_layers"], param_dtype="bfloat16",
+        compute_dtype="bfloat16")
+    zm = (zcfg.n_layers // len(zcfg.hybrid_pattern)) \
+        * zcfg.hybrid_pattern.count("m")
+    if (zcfg.family, zcfg.d_model, zcfg.ssm_state, zcfg.ssm_heads, zm) != \
+            ("hybrid", 3584, 64, 112, 2):
+        raise AssertionError(f"not zamba2-7b's a-m-m group: {zcfg}")
+    out["zamba2_bf16"] = ssd_copy_grads(
+        "train zamba2 bf16", zcfg, dev,
+        (ZAMBA_TRAIN_COPY["batch"], ZAMBA_TRAIN_COPY["seq"]),
+        {"ssd_chunked_fma": 0, "ssd_chunked_tc": 2 * zm,
+         **dict.fromkeys(ssd.BWD_ENTRIES, zm)}, TRAIN_BF16_GRAD_SHARE)
+
+    # (c) the slice: mamba2-780m at full size, 3 steps of train()
+    cfg = get_config(SSD_TRAIN["arch"])
+    if (cfg.family, cfg.n_layers, cfg.d_model, cfg.param_dtype,
+            cfg.opt_state_dtype, cfg.remat) != \
+            ("ssm", 48, 1536, "bfloat16", "float32", True):
+        raise AssertionError(f"not the full mamba2-780m config: {cfg}")
+    for f in train_mod.COUNTERS:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_mod.train(cfg, steps=SSD_TRAIN["steps"],
+                          batch=SSD_TRAIN["batch"], seq=SSD_TRAIN["seq"],
+                          device=dev)
+    torch.cuda.synchronize()
+    total = {f.__name__: f.launches for f in train_mod.COUNTERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = SSD_TRAIN["batch"] * SSD_TRAIN["seq"]
+    L = cfg.n_layers
+    per_step = {"ssd_chunked": 2 * L, "ssd_chunked_tc": 2 * L,
+                "ssd_chunked_bwd": L, **dict.fromkeys(ssd.BWD_ENTRIES, L)}
+    out["train"] = {
+        "arch": cfg.name, "layers": L, "tokens": [SSD_TRAIN["batch"],
+                                                  SSD_TRAIN["seq"]],
+        "steps": SSD_TRAIN["steps"], "losses": list(res.losses.values()),
+        "grad_norms": list(res.grad_norms.values()),
+        "ms": [res.seconds[s_] * 1e3 for s_ in sorted(res.seconds)],
+        "tok_per_s": [tokens / res.seconds[s_] for s_ in sorted(res.seconds)],
+        "peak_gib": peak, "launches": total,
+        "launches_per_step": [res.launches[s_] for s_ in sorted(res.launches)],
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps({"train mamba2": out["train"]}), flush=True)
+    if not (np.isfinite(out["train"]["losses"]).all()
+            and np.isfinite(out["train"]["grad_norms"]).all()):
+        raise AssertionError("(c) a loss or grad norm is not finite")
+    if any(launches != per_step for launches in
+           out["train"]["launches_per_step"]):
+        raise AssertionError(f"(c) want {per_step} a step (no FMA forward, "
+                             f"no SWA kernel); saw "
+                             f"{out['train']['launches_per_step']}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3126,6 +3545,37 @@ def main():
                                       ("fp32", "bf16", "e2e", "card")}}),
           flush=True)
 
+    # 17) training mamba2-780m: B3's forward and its backward kernel
+    phase("17. main path: training mamba2-780m (lm_loss, AdamW, the train "
+          "step) with B3's forward and its backward kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    st = ssd_train_phase(gen, card, logs.get("ssd_chunk_bwd", ""))
+    sbw, stl = st["path"], st["train"]["launches"]
+    # B3's backward: no TPU kernel; the reference's gradient is XLA's
+    # autodiff of the model zoo's ssd_chunked
+    ssd_bwd_entries = [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "replaces": "src/repro/kernels/ssd.py:74",
+        "gradient_of": "src/repro/models/ssm.py:59",
+        "launches": stl[name],
+        "max_abs_err": st["stage_max_abs_err"][name],
+        "ms": sbw["stage_ms"][name], "plain_ms": sbw["stage_plain_ms"][name],
+        "bound_ms": sbw["stage_bound"][name]["bound_ms"],
+        "bound_by": sbw["stage_bound"][name]["bound_by"],
+        "library_ms": None,
+        "zamba2_shape_ms": st["zamba2"]["stage_ms"][name],
+        "backward": {"ms": sbw["ms"], "plain_ms": sbw["plain_ms"],
+                     "bound_ms": sbw["bound_ms"], "bound_by": sbw["bound_by"],
+                     "max_abs_err": st["bwd_max_abs_err"],
+                     "zamba2_shape_ms": st["zamba2"]["ms"]}}
+        for name in ssd.BWD_ENTRIES]
+    print(json.dumps({"ssd_train_phase": {
+        k: st[k] for k in ("fp32", "bf16", "zamba2_bf16", "card")},
+        "seconds": time.perf_counter() - t17}), flush=True)
+
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_csr_rows.cu",
@@ -3206,6 +3656,7 @@ def main():
         "hybrid_kernel_launches": {k: hy_launches[k] for k in
                                    stage_launches},
         "hybrid_max_abs_err": max(hy_errs + [zamba_ssd["max_abs_err"]]),
+        "train_calls": stl["ssd_chunked_tc"],
         "zamba2_shape": {k: zamba_ssd[k] for k in
                          ("x", "N", "chunk", "ms", "stage_ms", "plain_ms",
                           "bound_ms", "bound_by", "fma_ms")}}, {
@@ -3217,7 +3668,9 @@ def main():
                            + [main_ssd["fma_max_abs_err"]]),
         "ms": main_ssd["fma_ms"], "plain_ms": main_ssd["plain_ms"],
         "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
-        "library_ms": None}] + bwd_entries
+        "library_ms": None,
+        "train_copy_launches": st["fp32"]["launches"]["ssd_chunked_fma"]}] \
+        + bwd_entries + ssd_bwd_entries
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

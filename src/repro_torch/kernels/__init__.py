@@ -19,7 +19,10 @@
     ``repro/kernels/ssd.py:ssd_chunked_pallas``: three chunk-parallel
     kernels on bf16 tensor cores (CUDA C++, ``csrc/ssd_chunk_tc.cu``), the
     prefill path's, and float32 FMA with the chunk loop in one kernel
-    (CUDA C++, ``csrc/ssd_chunked.cu``) for float32 and other bf16 shapes
+    (CUDA C++, ``csrc/ssd_chunked.cu``) for float32 and other bf16 shapes;
+    its backward (no TPU kernel: the reference's is XLA's autodiff) in
+    three launches on float32 FMA (CUDA C++, ``csrc/ssd_chunk_bwd.cu``),
+    the ssm and hybrid training paths'
 
 Each kernel ships with its plain PyTorch version beside it (used on CPU
 tensors and as the comparison on the card) and a launch counter; ref.py
@@ -35,8 +38,13 @@ from .swa import (swa_attention, swa_attention_bwd, swa_attention_bwd_dkdv,
                   swa_attention_bwd_wgmma_dkdv, swa_attention_bwd_wgmma_dq,
                   swa_attention_bwd_wgmma_stats, swa_attention_fma,
                   swa_attention_plain, swa_attention_wgmma)
-from .ssd import (ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state,
-                  ssd_chunk_state_plain, ssd_chunked, ssd_chunked_fma,
+from .ssd import (ssd_chunk_bwd_dstate, ssd_chunk_bwd_dstate_plain,
+                  ssd_chunk_bwd_grads, ssd_chunk_bwd_grads_plain,
+                  ssd_chunk_bwd_scan, ssd_chunk_bwd_scan_plain,
+                  ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state,
+                  ssd_chunk_state_plain, ssd_chunked, ssd_chunked_bwd,
+                  ssd_chunked_bwd_plain, ssd_chunked_bwd_stages_plain,
+                  ssd_chunked_fma, ssd_chunked_fwd, ssd_chunked_fwd_plain,
                   ssd_chunked_plain, ssd_chunked_tc, ssd_state_scan,
                   ssd_state_scan_plain)
 from .ops import BlockedEll, CsrOperand, spmm_op, swa_attention_op

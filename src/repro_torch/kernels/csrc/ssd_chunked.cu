@@ -16,6 +16,10 @@
 // output are read in place. Inputs are float32 or bfloat16; all arithmetic
 // is float32, y is written in x's type, rounded once, and the final state
 // in float32. The initial state is read from s0, or is zero when s0 is null.
+// Under grad the wrapper also passes la_out (b, L, H) and st_out (b, nc, H,
+// P, N), float32: the kernel then writes each chunk's la and the state
+// entering each chunk, which the backward (ssd_chunk_bwd.cu) reads; both
+// are null otherwise.
 //
 // Numerics kept from the model zoo's models/ssm.py:ssd_chunked (the
 // function the JAX model path calls): la is a cumulative sum taken in row
@@ -77,6 +81,8 @@ struct Args {
   const float* s0;            // (b, H, P, N) contiguous, or null
   void* y;                    // (b, L, H, P) contiguous
   float* s_out;               // (b, H, P, N) contiguous
+  float* la_out;              // (b, L, H) contiguous, or null
+  float* st_out;              // (b, nc, H, P, N) contiguous, or null
   int L, H, P, Q;
   int64_t xb, xl, xh, bb, bl, cb, cl;   // strides in elements
 };
@@ -186,6 +192,16 @@ __global__ void __launch_bounds__(NTH, 2) ssd_chunked_kernel(Args a) {
 
   for (int l0 = 0; l0 < a.L; l0 += Q) {
     __syncthreads();                     // the last chunk is done with smem
+    if (a.st_out) {                      // the state entering this chunk
+      const int64_t sb =
+          ((static_cast<int64_t>(b) * (a.L / Q) + l0 / Q) * a.H + h) * a.P +
+          p0;
+      for (int i = tid; i < PS * N / 4; i += NTH) {
+        const int r = i / (N / 4), c = (i % (N / 4)) * 4;
+        *reinterpret_cast<float4*>(a.st_out + (sb + r) * N + c) =
+            *reinterpret_cast<const float4*>(ss + r * LDS + c);
+      }
+    }
     for (int i = tid; i < Qp; i += NTH) {
       const int64_t off = dbase + static_cast<int64_t>(l0 + i) * a.H;
       la[i] = i < Q ? a.da[off] : 0.f;
@@ -202,6 +218,9 @@ __global__ void __launch_bounds__(NTH, 2) ssd_chunked_kernel(Args a) {
       for (int i = Q; i < Qp; ++i) la[i] = acc;
     }
     __syncthreads();
+    if (a.la_out && blockIdx.x == 0)
+      for (int i = tid; i < Q; i += NTH)
+        a.la_out[dbase + static_cast<int64_t>(l0 + i) * a.H] = la[i];
     const float la_end = la[Q - 1];
     for (int i = tid; i < Qp; i += NTH) wv[i] = expf(la_end - la[i]) * dtv[i];
 
@@ -401,12 +420,14 @@ cudaError_t dispatch_n(int N, const Args& a, int batch, cudaStream_t s) {
 // x, B, C and y); dts, da, D, s0 and s_out are float32. N is 64 or 128, P a
 // multiple of 32, 0 < Q <= 256 with L % Q == 0; strides are in elements
 // (the last dimension contiguous) and every row 16-byte aligned; s0 may be
-// null (zero initial state). Returns a cudaError_t (0 on success); the
-// launch is asynchronous, on `stream`.
+// null (zero initial state); la_out and st_out are null or the float32
+// la (b, L, H) and entering states (b, L / Q, H, P, N) to write. Returns a
+// cudaError_t (0 on success); the launch is asynchronous, on `stream`.
 extern "C" int ssd_chunked_fwd(int dtype, const void* x, const void* dts,
                                const void* da, const void* B, const void* C,
                                const void* D, const void* s0, void* y,
-                               void* s_out, int b, int L, int H, int P, int N,
+                               void* s_out, void* la_out, void* st_out,
+                               int b, int L, int H, int P, int N,
                                int Q, int64_t xb, int64_t xl, int64_t xh,
                                int64_t bb, int64_t bl, int64_t cb, int64_t cl,
                                void* stream) {
@@ -416,6 +437,7 @@ extern "C" int ssd_chunked_fwd(int dtype, const void* x, const void* dts,
   const Args a{x, static_cast<const float*>(dts), static_cast<const float*>(da),
                B, C, static_cast<const float*>(D),
                static_cast<const float*>(s0), y, static_cast<float*>(s_out),
+               static_cast<float*>(la_out), static_cast<float*>(st_out),
                L, H, P, Q, xb, xl, xh, bb, bl, cb, cl};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

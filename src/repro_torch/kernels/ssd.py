@@ -22,16 +22,24 @@ Two CUDA routes compute it on the card:
 
 ``ssd_chunked`` takes the route that ``_route`` names on a CUDA tensor and
 ``ssd_chunked_plain`` on a CPU tensor; it never falls back from one to
-another. On a CUDA tensor under grad its outputs carry an autograd node
-whose backward raises: no kernel computes the scan's gradient on the card
-yet (ROADMAP.md B3, "Backward"), and a silent detach would drop the
-mixer's gradient. On the CPU the plain version stays differentiable.
+another. On a CUDA tensor under grad it runs through ``_SsdChunked``: the
+forward is the routed kernel, keeping la and the states entering the
+chunks (the tensor-core route's own workspaces; the FMA kernel writes
+them when asked), and the backward is the hand-written
+``csrc/ssd_chunk_bwd.cu`` (``ssd_chunked_bwd``, three launches that
+``_bwd_route`` names: bK1 ``ssd_chunk_bwd_dstate``, bK2
+``ssd_chunk_bwd_scan``, bK3 ``ssd_chunk_bwd_grads``); the chain from
+softplus(dt) and dt * a to dt and A_log stays with autograd. On the CPU
+the plain version stays differentiable by autograd.
 ``ssd_chunked.launches`` counts its calls, each route's entry its
-own calls, and each of the three tensor-core kernels its own launches.
-``ssd_chunk_state_plain``, ``ssd_state_scan_plain`` and
-``ssd_chunk_out_plain`` are the three kernels' functions in plain PyTorch;
-composed, they give ``ssd_chunked_plain``'s result (tests and
-``chip_smoke.py`` only).
+own calls, each of the three tensor-core kernels its own launches,
+``ssd_chunked_bwd.launches`` the backward's calls and each backward entry
+its launches. ``ssd_chunk_state_plain``, ``ssd_state_scan_plain`` and
+``ssd_chunk_out_plain`` are the three forward kernels' functions in plain
+PyTorch, composed they give ``ssd_chunked_plain``'s result;
+``ssd_chunk_bwd_dstate_plain``, ``ssd_chunk_bwd_scan_plain`` and
+``ssd_chunk_bwd_grads_plain`` the backward's, composed in
+``ssd_chunked_bwd_plain`` (tests and ``chip_smoke.py`` only).
 
 Numerics follow the model zoo's ``models/ssm.py:ssd_chunked``, the function
 the JAX model path calls: softplus(dt) and a = -exp(A_log) in float32
@@ -229,7 +237,7 @@ def _route(dtype, P: int, N: int, Q: int) -> str:
 @functools.cache
 def _kernel_fn():
     fn = _build.load("ssd_chunked").ssd_chunked_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 6 + [ctypes.c_int64] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -259,6 +267,39 @@ def _cuda_inputs(name, x, B, C):
         raise ValueError(f"the kernels take b and H up to 65535; got {b}, {H}")
 
 
+def _fma_run(x, dts, da, B, C, D, init_state, Q, states=False):
+    """One launch of the FMA kernel -> (y, final state, la, the states
+    entering the chunks); with ``states`` the kernel also writes la (b, L,
+    H) and the entering states (b, nc, H, P, N), float32, which the
+    backward reads; else those two are None."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    xs = _kernel_operand("x", x, 3)
+    bs = _kernel_operand("B", B, 2)
+    cs = _kernel_operand("C", C, 2)
+    dts, da = dts.float().contiguous(), da.float().contiguous()
+    Df = D.float().contiguous()
+    s0 = _f32(init_state)
+    y = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
+    s_out = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    la = st = None
+    if states:
+        la = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
+        st = torch.empty((b, L // Q, H, P, N), dtype=torch.float32,
+                         device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _kernel_fn()(
+            _DTYPES[x.dtype], x.data_ptr(), dts.data_ptr(), da.data_ptr(),
+            B.data_ptr(), C.data_ptr(), Df.data_ptr(), ptr(s0), y.data_ptr(),
+            s_out.data_ptr(), ptr(la), ptr(st), b, L, H, P, N, Q, *xs, *bs,
+            *cs, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunked_fma launch failed: cudaError {err}")
+    return y, s_out, la, st
+
+
 def ssd_chunked_fma(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     """The FMA kernel on float32 or bf16 CUDA tensors (P a multiple of 32,
     N 64 or 128, Q <= 256), on the current stream; raises on anything
@@ -267,26 +308,8 @@ def ssd_chunked_fma(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     Q = _check(x, dt, B, C, A_log, D, chunk, init_state)
     _cuda_inputs("ssd_chunked_fma", x, B, C)
     _route(x.dtype, x.shape[3], B.shape[-1], Q)   # raises on what it can't
-    b, L, H, P = x.shape
-    N = B.shape[-1]
-    xs = _kernel_operand("x", x, 3)
-    bs = _kernel_operand("B", B, 2)
-    cs = _kernel_operand("C", C, 2)
-    dts, da = (t.contiguous() for t in _discretize(dt, A_log))
-    Df = D.float().contiguous()
-    s0 = None if init_state is None else init_state.float().contiguous()
-    y = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
-    s_out = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _kernel_fn()(
-            _DTYPES[x.dtype], x.data_ptr(), dts.data_ptr(), da.data_ptr(),
-            B.data_ptr(), C.data_ptr(), Df.data_ptr(),
-            None if s0 is None else s0.data_ptr(), y.data_ptr(),
-            s_out.data_ptr(), b, L, H, P, N, Q, *xs, *bs, *cs,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_chunked_fma launch failed: cudaError {err}")
+    y, s_out, _, _ = _fma_run(x, *_discretize(dt, A_log), B, C, D,
+                              init_state, Q)
     ssd_chunked_fma.launches += 1
     return y, s_out
 
@@ -397,6 +420,22 @@ def ssd_chunk_out(x, dts, la, B, C, D, s_in, *, chunk: int):
     return y
 
 
+def _tc_run(x, dts, da, B, C, D, init_state, chunk):
+    """K1, K2 and K3 from one call -> (y, final state, la, st), st holding
+    the state entering each chunk after K2."""
+    dims = _tc_dims(*x.shape, B.shape[-1], chunk, x.dtype)
+    b, L, H, P, N, Q = dims
+    la = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
+    st = torch.empty((b, L // Q, H, P, N), dtype=torch.float32,
+                     device=x.device)
+    y = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
+    s_out = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    _tc_launch(tuple(_STAGE_FNS), dims, x=x, dts=_f32(dts), da=_f32(da), B=B,
+               C=C, D=_f32(D), s0=_f32(init_state), la=la, st=st, y=y,
+               s_out=s_out)
+    return y, s_out, la, st
+
+
 def ssd_chunked_tc(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     """The tensor-core route on bf16 CUDA tensors (P a multiple of 64, N 64
     or 128, Q a multiple of 64 up to 256): K1, K2 and K3 of
@@ -405,19 +444,38 @@ def ssd_chunked_tc(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     anything else."""
     _check(x, dt, B, C, A_log, D, chunk, init_state)
     _cuda_inputs("ssd_chunked_tc", x, B, C)
-    dims = _tc_dims(*x.shape, B.shape[-1], chunk, x.dtype)
-    b, L, H, P, N, Q = dims
-    dts, da = (t.contiguous() for t in _discretize(dt, A_log))
-    la = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
-    st = torch.empty((b, L // Q, H, P, N), dtype=torch.float32,
-                     device=x.device)
-    y = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
-    s_out = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
-    _tc_launch(tuple(_STAGE_FNS), dims, x=x, dts=dts, da=da, B=B, C=C,
-               D=_f32(D), s0=_f32(init_state), la=la, st=st, y=y,
-               s_out=s_out)
+    y, s_out, _, _ = _tc_run(x, *_discretize(dt, A_log), B, C, D, init_state,
+                             chunk)
     ssd_chunked_tc.launches += 1
     return y, s_out
+
+
+def ssd_chunked_fwd(x, dts, da, B, C, D, *, chunk: int, init_state=None):
+    """The forward under grad on CUDA tensors, from the discretised dts and
+    da (float32 (b, L, H)): the route that ``_route`` names -> (y, final
+    state, la (b, L, H), the states entering the chunks (b, nc, H, P, N)),
+    the last two float32 and kept for the backward (the tensor-core
+    route's own workspaces; the FMA kernel writes them when asked)."""
+    Q = min(chunk, x.shape[1])
+    _cuda_inputs("ssd_chunked_fwd", x, B, C)
+    route = _route(x.dtype, x.shape[3], B.shape[-1], Q)
+    if route == "tc":
+        out = _tc_run(x, dts, da, B, C, D, init_state, chunk)
+    else:
+        out = _fma_run(x, dts, da, B, C, D, init_state, Q, states=True)
+    _KERNELS[route].launches += 1
+    return out
+
+
+def ssd_chunked_fwd_plain(x, dts, da, B, C, D, *, chunk: int,
+                          init_state=None):
+    """``ssd_chunked_fwd`` in plain PyTorch: the three plain stages
+    composed (tests stand it in for the kernels)."""
+    la, ds = ssd_chunk_state_plain(x, dts, da, B, chunk=chunk)
+    s_in, s_out = ssd_state_scan_plain(la, ds, chunk=chunk,
+                                       init_state=init_state)
+    y = ssd_chunk_out_plain(x, dts, la, B, C, D, s_in, chunk=chunk)
+    return y, s_out, la, s_in
 
 
 _KERNELS = {"tc": ssd_chunked_tc, "fma": ssd_chunked_fma}
@@ -426,15 +484,341 @@ _STAGE_FNS = {"ssd_chunk_state": ssd_chunk_state,     # K1, K2, K3 in order
               "ssd_chunk_out": ssd_chunk_out}
 
 
+# ---------------------------------------------------------------------------
+# the backward, in three stages (no TPU kernel: the reference's gradient is
+# XLA's autodiff of the model zoo's ssd_chunked). With S_c the state
+# entering chunk c and g_c the gradient of the state leaving it (the final
+# state's gradient for the last chunk):
+#   bK1  R_c     = sum_s exp(la_s) dy_s^T C_s                 (b, nc, H, P, N)
+#   bK2  g_c-1   = exp(la_end) g_c + R_c, walked from the last chunk; the
+#        gradient of init_state is g_-1; dle_c = exp(la_end) <g_c, S_c>
+#   bK3  dx, d dts, d da, dB, dC and D's partial sums per chunk
+# ---------------------------------------------------------------------------
+def ssd_chunk_bwd_dstate_plain(dy, C, la, *, chunk: int):
+    """bK1: each chunk's own addition to the gradient of the state
+    entering it, R_c = sum_s exp(la_s) dy_s^T C_s, float32 (b, nc, H, P,
+    N)."""
+    b, L, H, P = dy.shape
+    N, nc = C.shape[-1], L // chunk
+    e = torch.exp(la.float()).reshape(b, nc, chunk, H)
+    dyq = dy.float().reshape(b, nc, chunk, H, P) * e[..., None]
+    return torch.einsum("bcshp,bcsn->bchpn", dyq,
+                        C.float().reshape(b, nc, chunk, N))
+
+
+def ssd_chunk_bwd_scan_plain(la, R, s_in, *, chunk: int, dstate=None):
+    """bK2: the reverse scan over chunks -> (g (b, nc, H, P, N), the
+    gradient of the state leaving each chunk; the gradient of init_state
+    (b, H, P, N); dle (b, nc, H), exp(la_end) <g_c, S_c>, la_end's share
+    from the state's decay), as ``ssd_state_scan_plain`` walks forward."""
+    b, nc, H, P, N = R.shape
+    la_end = la.reshape(b, nc, chunk, H)[:, :, -1]            # (b, nc, H)
+    g = (torch.zeros((b, H, P, N), dtype=torch.float32, device=R.device)
+         if dstate is None else dstate.float())
+    gs = torch.empty_like(R)
+    dle = torch.empty((b, nc, H), dtype=torch.float32, device=R.device)
+    for c in range(nc - 1, -1, -1):
+        decay = torch.exp(la_end[:, c])
+        gs[:, c] = g
+        dle[:, c] = decay * (g * s_in[:, c]).sum((-2, -1))
+        g = g * decay[..., None, None] + R[:, c]
+    return gs, g, dle
+
+
+def ssd_chunk_bwd_grads_plain(x, dts, la, B, C, D, dy, s_in, g, dle, *,
+                              chunk: int):
+    """bK3: the per-chunk gradients from the state entering each chunk
+    (``s_in``) and the gradient of the state leaving it (``g``) -> (dx in
+    x's dtype, d dts and d da float32 (b, L, H), dB and dC in B's dtype
+    (summed over the heads), dD float32 (H,)). d la gathers the intra-chunk
+    exps, exp(la) C S^T, and the state update's exp(la_end - la) and
+    exp(la_end) (``dle``); d da is its reverse cumulative sum within the
+    chunk."""
+    b, L, H, P = x.shape
+    N, Q = B.shape[-1], chunk
+    la = la.float().reshape(b, L // Q, Q, H)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    dx = torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    ddts = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
+    dda = torch.empty_like(ddts)
+    dD = torch.zeros((H,), dtype=torch.float32, device=x.device)
+    Df = D.float()[:, None]
+    for c in range(L // Q):
+        rows = slice(c * Q, (c + 1) * Q)
+        xq, dyq = x[:, rows].float(), dy[:, rows].float()      # (b, Q, H, P)
+        Bq, Cq = B[:, rows].float(), C[:, rows].float()        # (b, Q, N)
+        dtq, lq = dts[:, rows].float(), la[:, c]               # (b, Q, H)
+        S, gc = s_in[:, c], g[:, c]                            # (b, H, P, N)
+        seg = lq[:, :, None, :] - lq[:, None, :, :]            # (b, s, t, H)
+        M = torch.exp(seg.masked_fill(~causal[None, :, :, None],
+                                      float("-inf")))
+        del seg
+        GM = torch.einsum("bsn,btn->bst", Cq, Bq)[..., None] * M
+        dW = torch.einsum("bshp,bthp->bsth", dyq, xq)          # dy_s . x_t
+        dGs = (dW * M * dtq[:, None]).sum(-1)                  # over heads
+        del M
+        dWGM = dW * GM
+        del dW
+        gB = torch.einsum("btn,bhpn->bthp", Bq, gc)            # g B_t
+        e_end = torch.exp(lq[:, -1:] - lq)                     # (b, Q, H)
+        w = e_end * dtq
+        dxq = torch.einsum("bsth,bshp->bthp", GM * dtq[:, None], dyq)
+        dx[:, rows] = (dxq + w[..., None] * gB + Df * dyq).to(x.dtype)
+        u = e_end * (xq * gB).sum(-1)
+        ddts[:, rows] = dWGM.sum(1) + u
+        v = dtq * u
+        A = dWGM * dtq[:, None]
+        del dWGM, GM
+        CS = torch.einsum("bsn,bhpn->bshp", Cq, S)
+        dla = A.sum(2) - A.sum(1) + torch.exp(lq) * (dyq * CS).sum(-1) - v
+        dla[:, -1] += dle[:, c] + v.sum(1)
+        dda[:, rows] = dla.flip(1).cumsum(1).flip(1)
+        del A
+        dC[:, rows] = (torch.einsum("bst,btn->bsn", dGs, Bq)
+                       + torch.einsum("bsh,bshp,bhpn->bsn", torch.exp(lq),
+                                      dyq, S)).to(C.dtype)
+        dB[:, rows] = (torch.einsum("bst,bsn->btn", dGs, Cq)
+                       + torch.einsum("bth,bthp,bhpn->btn", w, xq, gc)
+                       ).to(B.dtype)
+        dD += (dyq * xq).sum((0, 1, 3))
+    return dx, ddts, dda, dB, dC, dD
+
+
+def ssd_chunked_bwd_plain(x, dts, da, B, C, D, dy, dstate=None, *,
+                          chunk: int, init_state=None):
+    """The backward of the chunk scan in plain PyTorch, from the forward's
+    own inputs (dts and da as ``_discretize`` gives them) and the
+    gradients of y and of the final state (None for zero) -> (dx, d dts,
+    d da, dB, dC, dD, d init_state): la and the entering states from the
+    plain forward stages, then bK1, bK2 and bK3's plain versions. Not
+    autograd of the plain forward: the kernel's decomposition, written
+    out."""
+    Q = min(chunk, x.shape[1])
+    la, ds = ssd_chunk_state_plain(x, dts, da, B, chunk=Q)
+    s_in, _ = ssd_state_scan_plain(la, ds, chunk=Q, init_state=init_state)
+    return _bwd_stages(_BWD_PLAIN, x, dts, la, B, C, D, s_in, dy, dstate, Q)
+
+
+def ssd_chunked_bwd_stages_plain(x, dts, la, B, C, D, s_in, dy, dstate=None,
+                                 *, chunk: int):
+    """``ssd_chunked_bwd``'s three stages in plain PyTorch, on any device,
+    from the forward's saved la and entering states (``ssd_chunked_bwd``
+    takes it on a CPU tensor; tests and ``chip_smoke.py`` stand it in for
+    the kernel on the card)."""
+    return _bwd_stages(_BWD_PLAIN, x, dts, la, B, C, D, s_in, dy, dstate,
+                       min(chunk, x.shape[1]))
+
+
+def _bwd_stages(stages, x, dts, la, B, C, D, s_in, dy, dstate, Q):
+    dstate_fn, scan_fn, grads_fn = stages
+    R = dstate_fn(dy, C, la, chunk=Q)
+    g, dinit, dle = scan_fn(la, R, s_in, chunk=Q, dstate=dstate)
+    dx, ddts, dda, dB, dC, dD = grads_fn(x, dts, la, B, C, D, dy, s_in, g,
+                                         dle, chunk=Q)
+    return dx, ddts, dda, dB, dC, dD, dinit
+
+
+BWD_P = 64                       # the backward kernel's head dim
+
+
+def _bwd_route(dtype, P: int, N: int, Q: int) -> str:
+    """The backward kernel that takes a CUDA input of this dtype and shape:
+    ``"fma"`` (``csrc/ssd_chunk_bwd.cu``: float32 or bf16, P 64, N 64 or
+    128, Q a multiple of 64 up to 256: mamba2-780m's and zamba2-7b's
+    mixers). Raises on what it does not take."""
+    if dtype in _DTYPES and P == BWD_P and N in KERNEL_N \
+            and Q % TC_STEP == 0 and 0 < Q <= Q_MAX:
+        return "fma"
+    raise ValueError(f"no SSD backward kernel takes {dtype} with P={P}, "
+                     f"N={N}, Q={Q}: the FMA backward takes float32 or bf16 "
+                     f"with P {BWD_P}, N in {KERNEL_N} and Q a multiple of "
+                     f"{TC_STEP} up to {Q_MAX} (64-row tiles, no ragged "
+                     f"edge)")
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load("ssd_chunk_bwd").ssd_chunk_bwd
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 18
+                   + [ctypes.c_int] * 6 + [ctypes.c_int64] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_smem_bytes(N: int) -> dict:
+    """Dynamic shared memory of each backward launch at state size N (Q
+    256; builds the kernel's library)."""
+    fn = _build.load("ssd_chunk_bwd").ssd_chunk_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return {name: fn(i, 256, N) for i, name in enumerate(BWD_ENTRIES)}
+
+
+def _bwd_launch(stage: str, dims, dtype, *, x=None, dts=None, la=None,
+                B=None, C=None, D=None, dy=None, st=None, gbuf=None,
+                dstate=None, dinit=None, dle=None, dx=None, ddts=None,
+                dda=None, dB=None, dC=None, dDp=None):
+    """One entry of ``csrc/ssd_chunk_bwd.cu`` on the current stream, for
+    dims (b, L, H, P, N, Q) and x's dtype. A stage reads only its own
+    tensors; the others may be None."""
+    name = f"ssd_chunk_bwd_{stage}"
+    b, L, H, P, N, Q = dims
+    dev = la.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on a CUDA tensor; got {dev} "
+                         "(ssd_chunked_bwd takes the plain version on the "
+                         "CPU)")
+    if Q <= 0 or L % Q:
+        raise ValueError(f"L={L} is not divisible by chunk {Q}")
+    _bwd_route(dtype, P, N, Q)
+    if H > 65535 or b > 65535:
+        raise ValueError(f"{name} takes b and H up to 65535; got {b}, {H}")
+    for label, t in (("B", B), ("C", C), ("dy", dy)):
+        if t is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: {label} must be {dtype}; got {t.dtype}")
+    strides = [(0,) * n if t is None else _kernel_operand(label, t, n)
+               for label, t, n in (("x", x, 3), ("B", B, 2), ("C", C, 2))]
+    ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _bwd_fn()(
+            BWD_ENTRIES.index(name), _DTYPES[dtype], ptr(x), ptr(dts),
+            ptr(la), ptr(B), ptr(C), ptr(D), ptr(dy), ptr(st), ptr(gbuf),
+            ptr(dstate), ptr(dinit), ptr(dle), ptr(dx), ptr(ddts), ptr(dda),
+            ptr(dB), ptr(dC), ptr(dDp), *dims,
+            *(v for t in strides for v in t), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def ssd_chunk_bwd_dstate(dy, C, la, *, chunk: int):
+    """bK1 alone on CUDA tensors -> R (b, nc, H, P, N) float32, as
+    ``ssd_chunk_bwd_dstate_plain``."""
+    b, L, H, P = dy.shape
+    dims = (b, L, H, P, C.shape[-1], min(chunk, L))
+    R = torch.empty((b, L // dims[5], H, P, dims[4]), dtype=torch.float32,
+                    device=dy.device)
+    _bwd_launch("dstate", dims, dy.dtype, la=_f32(la), C=C, dy=dy.contiguous(),
+                gbuf=R)
+    ssd_chunk_bwd_dstate.launches += 1
+    return R
+
+
+def ssd_chunk_bwd_scan(la, R, s_in, *, chunk: int, dstate=None):
+    """bK2 alone on CUDA tensors: ``R`` (b, nc, H, P, N), contiguous
+    float32, holds bK1's sums and is overwritten with g, the gradient of
+    the state leaving each chunk; returns (R, the gradient of init_state,
+    dle), as ``ssd_chunk_bwd_scan_plain``."""
+    b, nc, H, P, N = R.shape
+    if R.dtype != torch.float32 or not R.is_contiguous() \
+            or tuple(s_in.shape) != tuple(R.shape) \
+            or tuple(la.shape) != (b, nc * chunk, H):
+        raise ValueError(f"R must be contiguous float32, s_in {tuple(R.shape)}"
+                         f" and la {(b, nc * chunk, H)}; got {R.dtype}, "
+                         f"{tuple(s_in.shape)}, {tuple(la.shape)}")
+    dinit = torch.empty((b, H, P, N), dtype=torch.float32, device=R.device)
+    dle = torch.empty((b, nc, H), dtype=torch.float32, device=R.device)
+    _bwd_launch("scan", (b, nc * chunk, H, P, N, chunk), torch.float32,
+                la=_f32(la), st=_f32(s_in), gbuf=R,
+                dstate=None if dstate is None else _f32(dstate),
+                dinit=dinit, dle=dle)
+    ssd_chunk_bwd_scan.launches += 1
+    return R, dinit, dle
+
+
+def ssd_chunk_bwd_grads(x, dts, la, B, C, D, dy, s_in, g, dle, *,
+                        chunk: int):
+    """bK3 alone on CUDA tensors -> (dx, d dts, d da, dB, dC, dD), as
+    ``ssd_chunk_bwd_grads_plain``; dD from per-(batch, chunk) partial sums
+    added in a fixed order."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    dims = (b, L, H, P, N, min(chunk, L))
+    dx = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
+    dB = torch.empty((b, L, N), dtype=B.dtype, device=x.device)
+    dC = torch.empty((b, L, N), dtype=C.dtype, device=x.device)
+    ddts = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
+    dda = torch.empty_like(ddts)
+    dDp = torch.empty((b, L // dims[5], H), dtype=torch.float32,
+                      device=x.device)
+    _bwd_launch("grads", dims, x.dtype, x=x, dts=_f32(dts), la=_f32(la),
+                B=B, C=C, D=_f32(D), dy=dy.contiguous(), st=_f32(s_in),
+                gbuf=_f32(g), dle=_f32(dle), dx=dx, ddts=ddts, dda=dda,
+                dB=dB, dC=dC, dDp=dDp)
+    ssd_chunk_bwd_grads.launches += 1
+    return dx, ddts, dda, dB, dC, dDp.sum((0, 1))
+
+
+BWD_ENTRIES = ("ssd_chunk_bwd_dstate", "ssd_chunk_bwd_scan",
+               "ssd_chunk_bwd_grads")
+_BWD_PLAIN = (ssd_chunk_bwd_dstate_plain, ssd_chunk_bwd_scan_plain,
+              ssd_chunk_bwd_grads_plain)
+_BWD_KERNELS = {"fma": (ssd_chunk_bwd_dstate, ssd_chunk_bwd_scan,
+                        ssd_chunk_bwd_grads)}
+
+
+def ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dstate=None, *,
+                    chunk: int):
+    """Backward of the chunk scan from the forward's inputs, its la (b, L,
+    H) and the states entering the chunks ``s_in`` (b, nc, H, P, N) ->
+    (dx, d dts, d da, dB, dC, dD, d init_state); ``dstate``, the final
+    state's gradient, may be None (zero).
+
+    On a CUDA tensor: the three launches of the kernel that ``_bwd_route``
+    names, on the current stream (no atomics: two calls give the same
+    bits). On a CPU tensor: the three plain stages."""
+    Q = min(chunk, x.shape[1])
+    if x.device.type == "cpu":
+        out = ssd_chunked_bwd_stages_plain(x, dts, la, B, C, D, s_in, dy,
+                                           dstate, chunk=Q)
+    elif x.device.type == "cuda":
+        out = _bwd_stages(
+            _BWD_KERNELS[_bwd_route(x.dtype, x.shape[3], B.shape[-1], Q)],
+            x, dts, la, B, C, D, s_in, dy, dstate, Q)
+        ssd_chunked_bwd.launches += 1
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    return out
+
+
+class _SsdChunked(torch.autograd.Function):
+    """The chunk scan with a gradient, from the discretised dts and da: the
+    forward is ``ssd_chunked_fwd`` (the routed kernel, keeping la and the
+    entering states), the backward ``ssd_chunked_bwd``. Both are looked up
+    in this module when called, so a caller may stand the plain versions
+    in for them. The chain from dts and da to dt and A_log stays with
+    autograd (``_discretize``)."""
+
+    @staticmethod
+    def forward(ctx, chunk, x, dts, da, B, C, D, init_state):
+        y, s_out, la, s_in = ssd_chunked_fwd(x, dts, da, B, C, D,
+                                             chunk=chunk,
+                                             init_state=init_state)
+        ctx.save_for_backward(x, dts, B, C, D, la, s_in)
+        ctx.chunk, ctx.has_init = chunk, init_state is not None
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dts, B, C, D, la, s_in = ctx.saved_tensors
+        dx, ddts, dda, dB, dC, dD, dinit = ssd_chunked_bwd(
+            x, dts, la, B, C, D, s_in, dy, dstate, chunk=ctx.chunk)
+        return (None, dx, ddts, dda, dB, dC, dD.to(D.dtype),
+                dinit if ctx.has_init else None)
+
+
 def ssd_chunked(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     """SSD chunk scan -> (y (b, L, H, P) in x's dtype, final state
     (b, H, P, N) float32).
 
     On a CUDA tensor: the route that ``_route`` names, on the current
-    stream. x, B and C may be strided views (last dimension contiguous,
-    rows 16-byte aligned), as ``mamba_block`` slices them from the conv
-    output; B and C must have x's dtype, float32 or bfloat16. On a CPU
-    tensor: ``ssd_chunked_plain``."""
+    stream; under grad through ``_SsdChunked``, whose backward is the
+    hand-written ``csrc/ssd_chunk_bwd.cu``. x, B and C may be strided
+    views (last dimension contiguous, rows 16-byte aligned), as
+    ``mamba_block`` slices them from the conv output; B and C must have
+    x's dtype, float32 or bfloat16. On a CPU tensor:
+    ``ssd_chunked_plain``, differentiable by autograd."""
     Q = _check(x, dt, B, C, A_log, D, chunk, init_state)
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, B, C, A_log, D, chunk=chunk,
@@ -446,29 +830,14 @@ def ssd_chunked(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     inputs = (x, dt, B, C, A_log, D, init_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in inputs):
-        out = _NoBackward.apply(kernel, chunk, *inputs)
+        _bwd_route(x.dtype, x.shape[3], B.shape[-1], Q)  # raise up front
+        dts, da = _discretize(dt, A_log)
+        out = _SsdChunked.apply(chunk, x, dts, da, B, C, D, init_state)
     else:
         out = kernel(x, dt, B, C, A_log, D, chunk=chunk,
                      init_state=init_state)
     ssd_chunked.launches += 1
     return out
-
-
-class _NoBackward(torch.autograd.Function):
-    """The CUDA chunk scan under grad: the forward runs the kernel, the
-    backward raises."""
-
-    @staticmethod
-    def forward(ctx, kernel, chunk, x, dt, B, C, A_log, D, init_state):
-        return kernel(x, dt, B, C, A_log, D, chunk=chunk,
-                      init_state=init_state)
-
-    @staticmethod
-    def backward(ctx, dy, dstate):
-        raise NotImplementedError(
-            "ssd_chunked has no backward on a CUDA tensor: the SSD chunk "
-            "scan's backward kernel is still to be written (ROADMAP.md B3, "
-            "\"Backward\"); mamba2 and zamba2 train on the CPU only")
 
 
 ssd_chunked.launches = 0
@@ -477,3 +846,7 @@ ssd_chunked_fma.launches = 0
 ssd_chunk_state.launches = 0
 ssd_state_scan.launches = 0
 ssd_chunk_out.launches = 0
+ssd_chunked_bwd.launches = 0
+ssd_chunk_bwd_dstate.launches = 0
+ssd_chunk_bwd_scan.launches = 0
+ssd_chunk_bwd_grads.launches = 0

@@ -17,6 +17,12 @@ Full size on the card, qwen3-4b-swa4096 at 2 x 16,384 tokens:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
         --shape long_500k --steps 3 --batch 2 --seq 16384
+
+and mamba2-780m at 16 x 4,096 (the SSD chunk scan's forward and backward
+kernels; zamba2-7b the same way):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+        --steps 3 --batch 16 --seq 4096
 """
 from __future__ import annotations
 
@@ -30,7 +36,10 @@ from ..checkpoint import Checkpointer
 from ..configs import SHAPES, get_config, get_smoke
 from ..data import TokenStream
 from ..device import resolve_device, synchronize
-from ..kernels import (ssd_chunked, swa_attention, swa_attention_bwd_dkdv,
+from ..kernels import (ssd_chunk_bwd_dstate, ssd_chunk_bwd_grads,
+                       ssd_chunk_bwd_scan, ssd_chunked, ssd_chunked_bwd,
+                       ssd_chunked_fma, ssd_chunked_tc, swa_attention,
+                       swa_attention_bwd_dkdv,
                        swa_attention_bwd_dq, swa_attention_bwd_stats,
                        swa_attention_bwd_wgmma_dkdv,
                        swa_attention_bwd_wgmma_dq,
@@ -47,7 +56,9 @@ LOG_EVERY = 5         # a [train] line every LOG_EVERY steps and the last
 COUNTERS = (swa_attention, swa_attention_wgmma, swa_attention_fma,
             swa_attention_bwd_wgmma_stats, swa_attention_bwd_wgmma_dkdv,
             swa_attention_bwd_wgmma_dq, swa_attention_bwd_stats,
-            swa_attention_bwd_dkdv, swa_attention_bwd_dq, ssd_chunked)
+            swa_attention_bwd_dkdv, swa_attention_bwd_dq, ssd_chunked,
+            ssd_chunked_tc, ssd_chunked_fma, ssd_chunked_bwd,
+            ssd_chunk_bwd_dstate, ssd_chunk_bwd_scan, ssd_chunk_bwd_grads)
 
 
 @dataclasses.dataclass

@@ -2,7 +2,8 @@
 and every gradient against ``jax.grad`` of the reference's ``lm_loss``
 (full attention through the flash custom VJP; sliding-window attention
 through the banded op's backward; deepseek's MLA and routed experts with
-the router's aux term; the vlm and encdec losses), the train step over
+the router's aux term; the vlm and encdec losses; the ssm and hybrid
+losses through the SSD chunk scan), the train step over
 three steps with and without gradient accumulation against the
 reference's ``make_train_step``, the train CLI on the CPU, and the SSD's
 autograd on either device (the restart replays of the train loop and of
@@ -114,8 +115,10 @@ def _port_loss_and_grads(cfg, tp, batch):
     ("deepseek-v2-236b", {}, 64),                           # MLA, MoE + aux
     ("paligemma-3b", {}, 120),                              # vlm: text only
     ("seamless-m4t-large-v2", {}, 64),                      # encdec
+    ("mamba2-780m", {}, 128),                               # ssm: SSD scan
+    ("zamba2-7b", {}, 64),                                  # hybrid
 ], ids=["qwen3-full", "qwen3-swa", "deepseek-aux", "paligemma-vlm",
-        "seamless-encdec"])
+        "seamless-encdec", "mamba2-ssm", "zamba2-hybrid"])
 def test_lm_loss_and_gradients_match_jax_grad(jref, arch, kw, S):
     rcfg, cfg = _cfgs(jref, arch, **kw)
     rp, tp = _carried(jref, rcfg, cfg)
@@ -209,6 +212,17 @@ def test_train_cli_smoke_on_cpu(capsys):
     assert "[train] done" in out
 
 
+def test_train_cli_smoke_on_cpu_ssm(capsys):
+    """The ssm family through the same CLI: mamba2-780m's smoke config,
+    the plain SSD scan differentiated on the CPU."""
+    train_cli.main(["--arch", "mamba2-780m", "--smoke", "--steps", "6",
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[train] mamba2-780m (smoke)" in out
+    assert "[train] step     5 loss" in out
+    assert "[train] done" in out
+
+
 def test_layers_split_each_stacked_leaf_once():
     """The forward hands layer i the i-th piece of one ``unbind`` a stacked
     leaf: a leaf's pieces share one backward node, which stacks their
@@ -256,17 +270,34 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_under_grad_raises_in_the_backward(cuda):
-    """On the card the chunk scan runs its kernel under grad, and the
-    backward raises (no silent detach) naming the ROADMAP item."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_under_grad_runs_the_backward_kernel(cuda, dtype):
+    """On the card the chunk scan under grad runs its routed forward and,
+    in the backward, the three launches of ``csrc/ssd_chunk_bwd.cu``; x's
+    gradient equals the plain backward's (float32 within 1e-4 of its
+    largest, bf16 one ulp of the plain float32 backward rounded once)."""
+    from repro_torch.kernels import ssd
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(1, 256, 2, 64, generator=g, device=cuda,
-                    dtype=torch.bfloat16, requires_grad=True)
+                    dtype=dtype, requires_grad=True)
     dt = torch.randn(1, 256, 2, generator=g, device=cuda)
     B, C = (torch.randn(1, 256, 64, generator=g, device=cuda,
-                        dtype=torch.bfloat16) for _ in range(2))
-    y, s = ssd_chunked(x, dt, B, C, torch.zeros(2, device=cuda),
-                       torch.ones(2, device=cuda), chunk=128)
+                        dtype=dtype) for _ in range(2))
+    A_log, D = torch.zeros(2, device=cuda), torch.ones(2, device=cuda)
+    dy = torch.randn(1, 256, 2, 64, generator=g, device=cuda, dtype=dtype)
+    before = [f.launches for f in ssd._BWD_KERNELS["fma"]]
+    y, s = ssd_chunked(x, dt, B, C, A_log, D, chunk=128)
     assert y.requires_grad and torch.isfinite(y).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
-        y.float().sum().backward()
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in
+            zip(ssd._BWD_KERNELS["fma"], before)] == [1, 1, 1]
+    dts, da = ssd._discretize(dt, A_log)
+    exp = ssd.ssd_chunked_bwd_plain(x.detach(), dts, da, B, C, D, dy,
+                                    chunk=128)[0]
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(x.grad, exp.to(dtype), atol=1e-5,
+                                   rtol=2 ** -7)
+    else:
+        err = float((x.grad - exp).abs().max())
+        assert err <= 1e-4 * float(exp.abs().max())

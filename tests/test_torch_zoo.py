@@ -173,18 +173,112 @@ FORWARD_IDS = ["deepseek-v2", "deepseek-v3", "seamless", "paligemma",
                "paligemma-swa"]
 
 
+# A token whose reference router probabilities at the top-k boundary (the
+# k-th and the (k+1)-th) lie within this many float32 ulps of the k-th may
+# go either way: the port's and the reference's float32 hidden states part
+# by ~1e-6 of their scale (sums taken in other orders), which moves the
+# router's probabilities by up to 42 ulps here (deepseek-v3, both MoE
+# layers); the closest boundary seen outside a tie is 6,962 ulps.
+TIE_ULPS = 256
+
+
+def _record_routing(jref, monkeypatch):
+    """Wrap both packages' routers: returns (reference, port), lists of
+    (router weight, float32 probs (t, E)) and (router weight, expert ids
+    (t, k)), one entry per MoE layer call. The reference's probs are
+    computed inside its compiled program by its own ops."""
+    import repro.models.moe as rmoe
+    from repro_torch.models import moe as pmoe
+    jax, jnp = jref.jax, jref.jnp
+    ref, port = [], []
+    ref_body, port_route = rmoe._local_expert_ffn, pmoe.route
+
+    def body(x, router_w, wi, wo, *, cfg, **kw):
+        xf = x.reshape(-1, x.shape[-1])
+        probs = jax.nn.softmax(jnp.einsum(
+            "td,de->te", xf, router_w.astype(cfg.cdtype)).astype(jnp.float32),
+            axis=-1)
+        jax.debug.callback(lambda w, p: ref.append(
+            (np.asarray(w), np.asarray(p))), router_w, probs)
+        return ref_body(x, router_w, wi, wo, cfg=cfg, **kw)
+
+    def route(xf, router_w, cfg):
+        out = port_route(xf, router_w, cfg)
+        port.append((router_w.detach().numpy().copy(), out[2].numpy().copy()))
+        return out
+
+    monkeypatch.setattr(rmoe, "_local_expert_ffn", body)
+    monkeypatch.setattr(pmoe, "route", route)
+    return ref, port
+
+
+def _rows_past_ties(ref, port, cfg, B, S):
+    """Hold the port's expert choice at each MoE layer to the reference's
+    and return the (B, S) mask of logit rows downstream of a near-tie.
+
+    At every token not already downstream of a tie: each expert the
+    reference's probabilities put more than ``TIE_ULPS`` above the
+    (k+1)-th is chosen, and none more than ``TIE_ULPS`` below the k-th.
+    Outside the margin this is the reference's top-k exactly; inside it,
+    a choice among the tied experts. A tied token's row is downstream; so
+    is every later row of its sequence if a token mixer follows its layer
+    (the MoE layers are the model's last), and every token routed to a
+    tied expert if that expert overflows its slots in either routing."""
+    from repro_torch.models.moe import expert_capacity
+    k, E, t = cfg.top_k, cfg.n_experts, B * S
+    cpe = expert_capacity(t, cfg)
+    assert len(ref) == len(port) > 0
+    downstream = np.zeros((B, S), bool)
+    for i, (w, ids) in enumerate(port):
+        pr = next(p for rw, p in ref if np.array_equal(rw, w))
+        s = -np.sort(-pr, axis=-1)
+        pk, pk1 = s[:, k - 1:k], s[:, k:k + 1]
+        margin = TIE_ULPS * np.spacing(pk)
+        chosen = np.zeros((t, E), bool)
+        np.put_along_axis(chosen, ids, True, axis=-1)
+        sure, possible = pr > pk1 + margin, pr >= pk - margin
+        held = ~downstream.reshape(t, 1)
+        tied = (pk - pk1 <= margin) & held
+        assert ((chosen == (pr >= pk)) | ~held | tied).all(), \
+            f"MoE layer {i}: the port's experts differ from the reference's"
+        assert ((sure <= chosen) & (chosen <= possible) | ~held).all(), \
+            f"MoE layer {i}: a tied token chose outside the tied experts"
+        roots = tied[:, 0].copy()
+        ref_counts = np.bincount(np.argsort(-pr, axis=-1, kind="stable")[
+            :, :k].ravel(), minlength=E)
+        port_counts = np.bincount(ids.ravel(), minlength=E)
+        over = ((ref_counts > cpe) | (port_counts > cpe)) \
+            & (tied & possible).any(0)
+        roots |= (possible & over).any(-1) & held[:, 0]
+        for r in np.flatnonzero(roots):
+            bi, si = divmod(int(r), S)
+            downstream[bi, si:] |= i < len(port) - 1
+            downstream[bi, si] = True
+    return downstream
+
+
 @pytest.mark.parametrize("arch,kw", FORWARD_CASES, ids=FORWARD_IDS)
-def test_forward_matches_reference(jref, arch, kw):
+def test_forward_matches_reference(jref, arch, kw, monkeypatch):
+    """The logits at 1e-4. For the moe family also each MoE layer's
+    expert choice, token by token (``_rows_past_ties``); a logit row
+    downstream of a near-tie of the router's probabilities is held only
+    through that choice."""
     rcfg, cfg = _cfgs(jref, arch, **kw)
     rp, tp = _carried(jref, rcfg, cfg)
     S = 56 if cfg.family == "vlm" else 64       # the vlm's 8 + 56 = 64
     toks = h.tokens(cfg, 2, S)
     ex = _extras(cfg, 2, 48)
+    if cfg.family == "moe":
+        ref, port = _record_routing(jref, monkeypatch)
     exp = _ref_logits(jref, rcfg, rp, toks, ex)
     out = _port_logits(cfg, tp, toks, ex)
     assert out.shape == (2, 64 if cfg.family == "vlm" else S,
                          cfg.padded_vocab)
-    np.testing.assert_allclose(out, exp, atol=1e-4, rtol=1e-4)
+    held = np.ones(out.shape[:2], bool)
+    if cfg.family == "moe":
+        held = ~_rows_past_ties(ref, port, cfg, *toks.shape)
+        assert held.mean() > 0.9
+    np.testing.assert_allclose(out[held], exp[held], atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "seamless-m4t-large-v2",

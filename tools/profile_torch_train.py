@@ -8,8 +8,11 @@ with CUDA events around the three parts of each: the forward of
 ``adamw_update``. Then it profiles one more step with ``torch.profiler``.
 It prints the last warm step's ms and its parts, the profiled step's
 device time per kernel class (the B2 backward's launches, the B2 forward,
-cuBLAS matrix products, the rest) and per kernel name, and the device's
-busy share of that synchronised step.
+the B3 forward and backward, cuBLAS matrix products, the rest) and per kernel name, and the device's
+busy share of that synchronised step. ``--arch mamba2-780m`` (or
+zamba2-7b) splits an ssm (hybrid) step the same way, with the SSD chunk
+scan's forward kernels and its backward kernel (``csrc/ssd_chunk_bwd.cu``)
+as classes of their own.
 
 ``--layout select`` hands each layer ``t[i]`` views of the stacked leaves
 in place of the forward's one ``unbind`` a leaf (``models/lm.py:_layers``),
@@ -20,6 +23,8 @@ Run on a machine with the card (the script refuses to run without one):
     PYTHONPATH=src python3 tools/profile_torch_train.py \
         [--arch qwen3-4b] [--shape long_500k] [--batch 2] [--seq 16384] \
         [--warm 2] [--layout unbind|select]
+    PYTHONPATH=src python3 tools/profile_torch_train.py \
+        --arch mamba2-780m --batch 16 --seq 4096
 
 The last line is a JSON summary.
 """
@@ -40,6 +45,11 @@ def kernel_class(name: str) -> str:
         return "swa_attention_bwd kernels"
     if "swa_attention" in name:
         return "swa_attention forward kernel"
+    if "ssd_bwd_" in name:
+        return "ssd_chunk_bwd kernels"
+    if any(k in name for k in ("ssd_chunk_state", "ssd_state_scan",
+                               "ssd_chunk_out", "ssd_chunked_kernel")):
+        return "ssd forward kernels"
     if any(m in name.lower() for m in GEMM_MARKS):
         return "cuBLAS matmul"
     return "other"
