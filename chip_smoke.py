@@ -234,35 +234,43 @@ raises and the script exits non-zero:
 
 17. drive the training path of the ssm family: mamba2-780m through
    ``launch/train.py``'s loop with B3's forward (the tensor-core route in
-   bf16, the FMA kernel in float32) and its backward kernel,
-   ``csrc/ssd_chunk_bwd.cu``, three launches (bK1 each chunk's own state
-   gradient, bK2 the reverse scan over chunks, bK3 the per-chunk
-   gradients), behind ``ssd._SsdChunked``: (a) before any model is
-   resident, the backward against ``ssd_chunked_bwd_plain`` and each
-   launch against its plain stage, on strided x/B/C views as
-   ``mamba_block`` passes them, from the routed forward's own la and
-   entering states, at edge shapes (float32 and bf16; L = Q and 4Q; Q 64
-   and 256; N 64 and 128; H 1 and 3; with and without init_state; a zero
-   and a non-zero final-state gradient), at the path's shape (b 16, L
-   4,096, H 48, P 64, N 128, chunk 256, bf16) and at zamba2-7b's (b 1, L
-   8,192, H 112, N 64): float32 outputs within 1e-4 of their largest, bf16
-   outputs at one ulp of the plain float32 backward rounded once, two
-   calls the same bits; at the two large shapes each launch, the call,
-   the plain backward and each plain stage are timed beside the bounds
-   (no PyTorch call computes the scan's gradient, so there is no library
-   yardstick), and the kernels' registers, spills and shared memory are
-   recorded; (b) a float32 copy of mamba2-780m at full width, 2 layers, 1
-   x 8,192 tokens, remat on: ``lm_loss`` and every gradient through the
-   kernels (the FMA forward, twice a layer, and the backward kernel)
-   against the plain versions (the loss within 1e-5 relative, each
-   gradient within 1e-4 of its leaf's largest); (b') the same copy in bf16
-   (the tensor-core forward) and zamba2-7b at full width, 3 layers (one
-   a-m-m group), 1 x 8,192, each gradient within 2e-2 of its leaf's
-   largest; (c) mamba2-780m at full width and depth (48 layers, bf16
-   parameters, float32 AdamW state), 16 x 4,096 tokens, 3 steps, launch
-   counters set to 0 just before and read just after (a step: 96 forward
-   calls on the tensor-core route, 48 of each backward launch, 0 FMA;
-   loss and grad norm finite), printing ms a step, tok/s and peak memory.
+   bf16, the FMA kernel in float32) and its backward behind
+   ``ssd._SsdChunked``, the route that ``ssd._bwd_route`` names: in bf16
+   ``csrc/ssd_chunk_bwd_tc.cu`` on bf16 tensor cores (``wgmma``, TMA
+   stages), four launches (the scan with each state split over blocks;
+   dGs, the gradient of C B^T summed over heads once per chunk; dB and dC;
+   the head blocks' dx, d dts and d da) after bK1 of
+   ``csrc/ssd_chunk_bwd.cu``; in float32 that file's three launches on
+   FMA (bK1 each chunk's own state gradient, bK2 the reverse scan over
+   chunks, bK3 the per-chunk gradients): (a) before any model is
+   resident, the routed backward against ``ssd_chunked_bwd_plain`` and
+   each launch against its plain stage, in bf16 the FMA route on the same
+   input too, on strided x/B/C views as ``mamba_block`` passes them, from
+   the routed forward's own la and entering states, at edge shapes
+   (float32 and bf16; L = Q and 4Q; Q 64 and 256; N 64 and 128; H 1 and
+   3; with and without init_state; a zero and a non-zero final-state
+   gradient), at the path's shape (b 16, L 4,096, H 48, P 64, N 128, chunk
+   256, bf16) and at zamba2-7b's (b 1, L 8,192, H 112, N 64): float32
+   outputs within 1e-4 of their largest, bf16 outputs at one ulp of the
+   plain float32 backward rounded once, two calls the same bits; at the
+   two large shapes each launch, the call, the FMA route's call and
+   launches on the same input, the plain backward and each plain stage
+   are timed beside the bounds (no PyTorch call computes the scan's
+   gradient, so there is no library yardstick), and both kernels'
+   registers, spills and shared memory are recorded; (b) a float32 copy
+   of mamba2-780m at full width, 2 layers, 1 x 8,192 tokens, remat on:
+   ``lm_loss`` and every gradient through the kernels (the FMA forward,
+   twice a layer, and the FMA backward) against the plain versions (the
+   loss within 1e-5 relative, each gradient within 1e-4 of its leaf's
+   largest); (b') the same copy in bf16 (the tensor-core forward and
+   backward) and zamba2-7b at full width, 3 layers (one a-m-m group), 1 x
+   8,192, each gradient within 2e-2 of its leaf's largest; (c) mamba2-780m
+   at full width and depth (48 layers, bf16 parameters, float32 AdamW
+   state), 16 x 4,096 tokens, 3 steps, launch counters set to 0 just
+   before and read just after (a step: 96 forward calls on the
+   tensor-core route, 48 of bK1 and of each tensor-core backward launch,
+   0 of the FMA kernels past bK1; loss and grad norm finite), printing ms
+   a step, tok/s and peak memory.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -417,14 +425,17 @@ TRAIN_BF16_GRAD_SHARE = 2e-2
 # launch/train.py's loop; (d) examples/train_e2e_torch.py --preset small
 TRAIN = {"arch": "qwen3-4b", "shape": "long_500k", "batch": 2, "seq": 16384,
          "steps": 3}
-# phase 17: training mamba2-780m. (a) the B3 backward kernel's three
-# launches against the plain backward: edge shapes (L = Q and 4Q; Q 64 and
-# 256; N 64 and 128; H 1 and 3; with and without init_state; a zero and a
-# non-zero final-state gradient; float32 and bf16; strided x/B/C views),
-# the path's shape and zamba2-7b's; gates as phase 16 (a): float32 outputs
-# within 1e-4 of their largest plain element (BWD_F32_SHARE), bf16 outputs
-# one ulp of the plain float32 backward rounded once (SSD_TOL), two calls
-# the same bits
+# phase 17: training mamba2-780m. (a) B3's backward, the route that
+# ssd._bwd_route names (float32: the FMA kernel's three launches; bf16: the
+# shared bK1 and the tensor-core kernel's four), against the plain
+# backward and each launch against its plain stage; in bf16 the FMA route
+# on the same input too: edge shapes (L = Q and 4Q; Q 64 and 256; N 64
+# and 128; H 1 and 3; with and without init_state; a zero and a non-zero
+# final-state gradient; float32 and bf16; strided x/B/C views), the path's
+# shape and zamba2-7b's; gates as phase 16 (a): float32 outputs within
+# 1e-4 of their largest plain element (BWD_F32_SHARE), bf16 outputs one
+# ulp of the plain float32 backward rounded once (SSD_TOL), two calls the
+# same bits
 SSD_BWD_EDGES = [(q_, l_ * q_, n_, h_) for q_ in (64, 256) for l_ in (1, 4)
                  for n_ in (64, 128) for h_ in (1, 3)]
 SSD_BWD_PATH = {"b": 16, "L": 4096, "H": 48, "N": 128, "Q": 256}
@@ -1144,15 +1155,18 @@ def train_phase(gen, card, log):
 
 def ssd_bwd_bound(x, B, Q, part="all"):
     """Least time for the chunk scan's backward (``part`` "all") or one of
-    its launches ("dstate", "scan", "grads") on these inputs: the bytes of
-    each input read once and each output written once (the whole: x, dy,
-    B, C, dts, la and the entering states in, dx, dB, dC, d dts, d da and
-    init_state's gradient out; a launch also its workspaces R and g),
-    against its products (bK1 dy^T C per head; bK3 C B^T, (sum_h dG) B and
-    (sum_h dG)^T C on the causal triangle once per (batch, chunk), and per
-    head dW and W^T dy on the triangle, C S^T, dy S, g B and x g), at the
-    dense bf16 tensor-core rate for bf16 inputs, the CUDA cores' float32
-    rate for float32."""
+    its launches (the FMA route's "dstate", "scan", "grads"; the
+    tensor-core route's "tc_scan", "tc_dgs", "tc_dbdc", "tc_head") on these
+    inputs: the bytes of each input read once and each output written once
+    (the whole: x, dy, B, C, dts, la and the entering states in, dx, dB,
+    dC, d dts, d da and init_state's gradient out; a launch also its
+    workspaces), against its products (bK1 dy^T C per head; bK3 C B^T,
+    (sum_h dG) B and (sum_h dG)^T C on the causal triangle once per
+    (batch, chunk), and per head dW and W^T dy on the triangle, C S^T, dy
+    S, g B and x g; of these, tc_dgs dW per head, tc_dbdc the two dG
+    products and dy S and x g, tc_head C B^T once per (batch, chunk), dW,
+    W^T dy and g B per head), at the dense bf16 tensor-core rate for bf16
+    inputs, the CUDA cores' float32 rate for float32."""
     import torch
     b, L, H, P = x.shape
     N, nc = B.shape[-1], L // Q
@@ -1163,11 +1177,25 @@ def ssd_bwd_bound(x, B, Q, part="all"):
     f1 = 2.0 * b * nc * H * Q * P * N
     f2 = 3.0 * b * nc * H * P * N
     f3 = 2.0 * b * nc * (3 * tri * N + H * (2 * tri * P + 4 * Q * P * N))
+    nbox, nt = -(-N // 64), Q // 64
+    dgs = b * nc * (nt * (nt + 1) // 2) * 64 * 64 * 4  # causal tiles of dGs
+    slices = b * nc * H * -(-P * N // 1024) * 4
     nbytes, flops = {
         "all": (3 * xs + 4 * bs + 4 * rows + st + fin, f1 + f2 + f3),
         "dstate": (xs + bs + rows + st, f1),
         "scan": (3 * st + fin + b * nc * H * 4 * 2, f2),
-        "grads": (3 * xs + 4 * bs + 4 * rows + 2 * st, f3)}[part]
+        "grads": (3 * xs + 4 * bs + 4 * rows + 2 * st, f3),
+        # the tensor-core route's launches: its workspaces dGs, the row
+        # sums qc and xg (nbox partials each) and the slices of <g, S>
+        "tc_scan": (3 * st + fin + b * nc * H * 4 + slices, f2),
+        "tc_dgs": (2 * xs + 2 * rows + dgs, 2.0 * b * nc * H * tri * P),
+        "tc_dbdc": (2 * xs + 4 * bs + 2 * rows + 2 * st + dgs
+                    + 2 * nbox * rows,
+                    2.0 * b * nc * (2 * tri * N + 2 * H * Q * P * N)),
+        "tc_head": (3 * xs + 2 * bs + 4 * rows + st + 2 * nbox * rows
+                    + slices + b * nc * H * 4,
+                    2.0 * b * nc * (tri * N + H * (2 * tri * P
+                                                   + Q * P * N)))}[part]
     rate = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -1175,21 +1203,25 @@ def ssd_bwd_bound(x, B, Q, part="all"):
 
 
 def ssd_bwd_ptxas(log):
-    """Registers, spills and stack of each instantiation of the backward's
-    three kernels in an ``nvcc -Xptxas -v`` log, keyed
-    ``kernel<dtype, N>``."""
+    """Registers, spills and stack of each instantiation of the backward
+    kernels of both routes in an ``nvcc -Xptxas -v`` log, keyed
+    ``kernel<dtype, N>`` (``kernel`` alone where N is not a template
+    argument)."""
     import re
     info, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = None
-            k = re.search(r"(ssd_bwd_(dstate|scan|grads)_kernel)", m.group(1))
+            k = re.search(r"(ssd_bwd_(dstate|scan|grads|tc_scan|tc_dgs|"
+                          r"tc_dbdc|tc_head)_kernel)", m.group(1))
             n = re.search(r"Li(\d+)E", m.group(1))
             if k and n:
                 t = ("bf16" if "bfloat16" in m.group(1) else "f32"
                      if "IfLi" in m.group(1) else "any")
                 name = f"{k.group(1)}<{t}, {n.group(1)}>"
+            elif k:
+                name = k.group(1)
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             info.setdefault(name, {})["registers"] = int(m.group(1))
             if sm := re.search(r"(\d+) bytes smem", line):
@@ -1231,13 +1263,15 @@ def hold_ssd_bwd(label, got, exp, names=SSD_BWD_NAMES):
 
 def check_ssd_bwd(label, gen, b, L, H, N, Q, dtype, *, init=False,
                   dstate=False, slow=False, time_it=False):
-    """The backward kernel's three launches (``ssd.ssd_chunked_bwd``) on
+    """The routed backward (``ssd.ssd_chunked_bwd``: the FMA kernel's three
+    launches in float32, bK1 and the tensor-core kernel's four in bf16) on
     strided x/B/C views, from the routed forward's own la and entering
     states, against ``ssd_chunked_bwd_plain``; each launch against its
     plain stage on the plain stage's inputs; a second call the same bits.
-    With ``time_it`` the call, each launch, the plain backward and each
-    plain stage are timed, with the bounds. Returns a dict of the
-    numbers."""
+    In bf16 the FMA route on the same input is held too. With ``time_it``
+    the call, each launch, the FMA route's call and launches, the plain
+    backward and each plain stage are timed, with the bounds. Returns a
+    dict of the numbers."""
     import torch
     from repro_torch.kernels import ssd
     dev = torch.device("cuda", 0)
@@ -1252,39 +1286,52 @@ def check_ssd_bwd(label, gen, b, L, H, N, Q, dtype, *, init=False,
     dy = torch.randn(x.shape, generator=gen, device=dev, dtype=dtype)
     _, _, la, s_in = ssd.ssd_chunked_fwd(x, dts, da, B, C, D, chunk=Q,
                                          init_state=s0)
-    fns = ssd._BWD_KERNELS["fma"]
+    route = ssd._bwd_route(dtype, P, N, Q)
+    fns = ssd._BWD_KERNELS[route]
     n0 = [f.launches for f in fns]
     got = ssd.ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dS, chunk=Q)
     torch.cuda.synchronize()
-    if [f.launches - n for f, n in zip(fns, n0)] != [1, 1, 1]:
+    if [f.launches - n for f, n in zip(fns, n0)] != [1] * len(fns):
         raise AssertionError(f"{label}: the backward did not launch its "
-                             f"three kernels once each")
+                             f"{len(fns)} kernels once each")
     exp = ssd.ssd_chunked_bwd_plain(x, dts, da, B, C, D, dy, dS, chunk=Q,
                                     init_state=s0)
     torch.cuda.synchronize()
     row = {"label": label, "x": list(x.shape), "N": N, "chunk": Q,
-           "dtype": str(dtype), "init_state": init, "dstate": dstate}
+           "dtype": str(dtype), "route": route, "init_state": init,
+           "dstate": dstate}
     row.update(hold_ssd_bwd(label, got, exp))
     # each launch against its plain stage, on the plain stage's inputs
     R = ssd.ssd_chunk_bwd_dstate(dy, C, la, chunk=Q)
     pR = ssd.ssd_chunk_bwd_dstate_plain(dy, C, la, chunk=Q)
-    g, dinit, dle = ssd.ssd_chunk_bwd_scan(la, pR.clone(), s_in, chunk=Q,
-                                           dstate=dS)
     pg, pdinit, pdle = ssd.ssd_chunk_bwd_scan_plain(la, pR, s_in, chunk=Q,
                                                     dstate=dS)
-    grads = ssd.ssd_chunk_bwd_grads(x, dts, la, B, C, D, dy, s_in, pg, pdle,
-                                    chunk=Q)
-    pgrads = ssd.ssd_chunk_bwd_grads_plain(x, dts, la, B, C, D, dy, s_in, pg,
-                                           pdle, chunk=Q)
-    torch.cuda.synchronize()
-    row["stages"] = {
-        "ssd_chunk_bwd_dstate": hold_ssd_bwd(f"{label} bK1", (R,), (pR,),
-                                             ("R",)),
-        "ssd_chunk_bwd_scan": hold_ssd_bwd(
+    stages = {"ssd_chunk_bwd_dstate": hold_ssd_bwd(f"{label} bK1", (R,),
+                                                   (pR,), ("R",))}
+    if route == "fma":
+        g, dinit, dle = ssd.ssd_chunk_bwd_scan(la, pR.clone(), s_in, chunk=Q,
+                                               dstate=dS)
+        grads = ssd.ssd_chunk_bwd_grads(x, dts, la, B, C, D, dy, s_in, pg,
+                                        pdle, chunk=Q)
+        pgrads = ssd.ssd_chunk_bwd_grads_plain(x, dts, la, B, C, D, dy,
+                                               s_in, pg, pdle, chunk=Q)
+        torch.cuda.synchronize()
+        stages["ssd_chunk_bwd_scan"] = hold_ssd_bwd(
             f"{label} bK2", (g, dinit, dle), (pg, pdinit, pdle),
-            ("g", "dinit", "dle")),
-        "ssd_chunk_bwd_grads": hold_ssd_bwd(f"{label} bK3", grads, pgrads)}
-    del R, pR, g, dinit, dle, pg, pdinit, pdle, grads, pgrads
+            ("g", "dinit", "dle"))
+        stages["ssd_chunk_bwd_grads"] = hold_ssd_bwd(f"{label} bK3", grads,
+                                                     pgrads)
+        del g, dinit, dle, grads, pgrads
+    else:
+        stages.update(tc_stage_check(label, x, dts, la, B, C, D, dy, s_in,
+                                     pR, dS, Q))
+        # the FMA route on the same bf16 input, held as well
+        fma = ssd.bwd_run("fma", x, dts, la, B, C, D, s_in, dy, dS, chunk=Q)
+        torch.cuda.synchronize()
+        row["fma_route"] = hold_ssd_bwd(f"{label} FMA route", fma, exp)
+        del fma
+    row["stages"] = stages
+    del R, pR, pg, pdinit, pdle
     again = ssd.ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dS, chunk=Q)
     torch.cuda.synchronize()
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
@@ -1292,47 +1339,104 @@ def check_ssd_bwd(label, gen, b, L, H, N, Q, dtype, *, init=False,
     row["bit_repeatable"] = True
     del again
     if time_it:
-        dstate_fn, scan_fn, grads_fn = fns
         kw = {"chunk": Q}
         row["ms"] = time_ms(lambda: ssd.ssd_chunked_bwd(
             x, dts, la, B, C, D, s_in, dy, dS, **kw), 5)
-        R = dstate_fn(dy, C, la, **kw)
-        g, _, dle = scan_fn(la, R.clone(), s_in, dstate=dS, **kw)
-        row["stage_ms"] = {
-            "ssd_chunk_bwd_dstate": time_ms(
-                lambda: dstate_fn(dy, C, la, **kw), 5),
-            "ssd_chunk_bwd_scan": time_ms(
-                lambda: scan_fn(la, R, s_in, dstate=dS, **kw), 5),
-            "ssd_chunk_bwd_grads": time_ms(
-                lambda: grads_fn(x, dts, la, B, C, D, dy, s_in, g, dle, **kw),
-                5)}
+        row["stage_ms"] = stage_times(ssd._BWD_KERNELS[route], x, dts, la, B,
+                                      C, D, dy, s_in, dS, Q, 5)
         row["plain_ms"] = time_ms(lambda: ssd.ssd_chunked_bwd_stages_plain(
             x, dts, la, B, C, D, s_in, dy, dS, **kw), 2)
-        pR = ssd.ssd_chunk_bwd_dstate_plain(dy, C, la, **kw)
-        row["stage_plain_ms"] = {
-            "ssd_chunk_bwd_dstate": time_ms(
-                lambda: ssd.ssd_chunk_bwd_dstate_plain(dy, C, la, **kw), 2),
-            "ssd_chunk_bwd_scan": time_ms(
-                lambda: ssd.ssd_chunk_bwd_scan_plain(la, pR, s_in,
-                                                     dstate=dS, **kw), 2),
-            "ssd_chunk_bwd_grads": time_ms(
-                lambda: ssd.ssd_chunk_bwd_grads_plain(
-                    x, dts, la, B, C, D, dy, s_in, g, dle, **kw), 2)}
+        row["stage_plain_ms"] = stage_times(
+            ssd._BWD_PLAIN["fma"] + ssd._BWD_PLAIN["tc"][1:], x, dts, la, B,
+            C, D, dy, s_in, dS, Q, 2)
+        if route == "tc":
+            # the FMA route and its launches on the same bf16 input
+            row["fma_ms"] = time_ms(lambda: ssd.bwd_run(
+                "fma", x, dts, la, B, C, D, s_in, dy, dS, **kw), 3)
+            row["fma_stage_ms"] = stage_times(
+                ssd._BWD_KERNELS["fma"], x, dts, la, B, C, D, dy, s_in, dS,
+                Q, 3)
         row["bound_ms"], row["bound_by"], row["bytes"], row["flops"] = \
             ssd_bwd_bound(x, B, Q)
         row["stage_bound"] = {
             f"ssd_chunk_bwd_{p_}": dict(zip(
                 ("bound_ms", "bound_by", "bytes", "flops"),
                 ssd_bwd_bound(x, B, Q, p_)))
-            for p_ in ("dstate", "scan", "grads")}
+            for p_ in ("dstate", "scan", "grads", "tc_scan", "tc_dgs",
+                       "tc_dbdc", "tc_head")}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["tflop_per_s"] = row["flops"] / row["ms"] / 1e9
         row["library_ms"] = None
-        del R, g, dle, pR
     print(json.dumps(row), flush=True)
     del x, dt, B, C, dy, got, exp, la, s_in
     torch.cuda.synchronize()
     return row
+
+
+def tc_stage_check(label, x, dts, la, B, C, D, dy, s_in, pR, dS, Q):
+    """The tensor-core backward's four launches, each against its plain
+    stage on the plain stages' inputs (dGs on its causal tiles, the only
+    ones written). Returns {entry: max abs errors}."""
+    import torch
+    from repro_torch.kernels import ssd
+    pg, pdinit, pdlep = ssd.ssd_chunk_bwd_tc_scan_plain(la, pR, s_in,
+                                                        chunk=Q, dstate=dS)
+    g, dinit, dlep = ssd.ssd_chunk_bwd_tc_scan(la, pR.clone(), s_in, chunk=Q,
+                                               dstate=dS)
+    pdgs = ssd.ssd_chunk_bwd_tc_dgs_plain(x, dts, la, dy, chunk=Q)
+    dgs = ssd.ssd_chunk_bwd_tc_dgs(x, dts, la, dy, chunk=Q)
+    tile = torch.arange(Q, device=x.device) // 64
+    causal = tile[:, None] >= tile[None, :]
+    pdbdc = ssd.ssd_chunk_bwd_tc_dbdc_plain(x, dts, la, B, C, dy, s_in, pg,
+                                            pdgs, chunk=Q)
+    dbdc = ssd.ssd_chunk_bwd_tc_dbdc(x, dts, la, B, C, dy, s_in, pg, pdgs,
+                                     chunk=Q)
+    head_in = (x, dts, la, B, C, D, dy, pg, pdlep, pdbdc[2], pdbdc[3])
+    phead = ssd.ssd_chunk_bwd_tc_head_plain(*head_in, chunk=Q)
+    head = ssd.ssd_chunk_bwd_tc_head(*head_in, chunk=Q)
+    torch.cuda.synchronize()
+    return {
+        "ssd_chunk_bwd_tc_scan": hold_ssd_bwd(
+            f"{label} tc scan", (g, dinit, dlep), (pg, pdinit, pdlep),
+            ("g", "dinit", "dlep")),
+        "ssd_chunk_bwd_tc_dgs": hold_ssd_bwd(
+            f"{label} tc dgs", (dgs[..., causal],), (pdgs[..., causal],),
+            ("dgs",)),
+        "ssd_chunk_bwd_tc_dbdc": hold_ssd_bwd(
+            f"{label} tc dbdc", dbdc, pdbdc, ("dB", "dC", "qc", "xg")),
+        "ssd_chunk_bwd_tc_head": hold_ssd_bwd(
+            f"{label} tc head", head, phead, ("dx", "ddts", "dda", "dDp"))}
+
+
+def stage_times(fns, x, dts, la, B, C, D, dy, s_in, dS, Q, iters):
+    """ms of each of ``fns`` (launches of a route, or their plain
+    versions: bK1, then the FMA route's bK2 and bK3 or the tensor-core
+    route's scan, dgs, dbdc and head, whichever ``fns`` holds) on inputs
+    made once by the plain stages, by name."""
+    from repro_torch.kernels import ssd
+    kw = {"chunk": Q}
+    plain = ssd._BWD_PLAIN
+    R = plain["fma"][0](dy, C, la, **kw)
+    g, _, dle = plain["fma"][1](la, R, s_in, dstate=dS, **kw)
+    _, _, dlep = plain["tc"][1](la, R, s_in, dstate=dS, **kw)
+    dgs = plain["tc"][2](x, dts, la, dy, **kw)
+    _, _, qc, xg = plain["tc"][3](x, dts, la, B, C, dy, s_in, g, dgs, **kw)
+    work = R.clone()             # the scans overwrite it in place (R -> g)
+    calls = {
+        "dstate": lambda f: f(dy, C, la, **kw),
+        "scan": lambda f: f(la, work, s_in, dstate=dS, **kw),
+        "grads": lambda f: f(x, dts, la, B, C, D, dy, s_in, g, dle, **kw),
+        "tc_scan": lambda f: f(la, work, s_in, dstate=dS, **kw),
+        "tc_dgs": lambda f: f(x, dts, la, dy, **kw),
+        "tc_dbdc": lambda f: f(x, dts, la, B, C, dy, s_in, g, dgs, **kw),
+        "tc_head": lambda f: f(x, dts, la, B, C, D, dy, g, dlep, qc, xg,
+                               **kw)}
+    out = {}
+    for f in fns:
+        name = f.__name__.removesuffix("_plain")
+        call = calls[name.removeprefix("ssd_chunk_bwd_")]
+        out[name] = time_ms(lambda: call(f), iters)
+    return out
 
 
 def ssd_copy_grads(label, cfg, dev, tokens, want_kernel, share,
@@ -1354,7 +1458,8 @@ def ssd_copy_grads(label, cfg, dev, tokens, want_kernel, share,
                          cfg.pdtype)
     batch = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in synthetic_batch(
         0, tokens[0], tokens[1], cfg.vocab_size).items()}
-    names = ("ssd_chunked_fma", "ssd_chunked_tc") + ssd.BWD_ENTRIES
+    names = (("ssd_chunked_fma", "ssd_chunked_tc") + ssd.BWD_ENTRIES
+             + ssd.BWD_TC_ENTRIES)
     counted = [getattr(ssd, n) for n in names]
     n0 = [f.launches for f in counted]
     kloss, kgrads = train_grads(cfg, params, batch)
@@ -1418,10 +1523,15 @@ def ssd_train_phase(gen, card, log):
         out[name] = rows[-1]
         torch.cuda.empty_cache()
     out["bwd_max_abs_err"] = {
-        n: max(r[n] for r in rows) for n in SSD_BWD_NAMES}
+        route: {n: max(r[n] for r in rows if r["route"] == route)
+                for n in SSD_BWD_NAMES} for route in ("fma", "tc")}
+    out["fma_route_bf16_max_abs_err"] = {
+        n: max(r["fma_route"][n] for r in rows if "fma_route" in r)
+        for n in SSD_BWD_NAMES}
     out["stage_max_abs_err"] = {
-        st_: max(max(r["stages"][st_].values()) for r in rows)
-        for st_ in ssd.BWD_ENTRIES}
+        st_: max(max(r["stages"][st_].values()) for r in rows
+                 if st_ in r["stages"])
+        for st_ in ssd.BWD_ENTRIES + ssd.BWD_TC_ENTRIES}
     out["bwd_build"] = {"ptxas": ssd_bwd_ptxas(log), "dynamic_smem_bytes": {
         n_: ssd.bwd_smem_bytes(n_) for n_ in ssd.KERNEL_N}}
     print(json.dumps({"ssd_chunk_bwd build": out["bwd_build"]}), flush=True)
@@ -1437,16 +1547,21 @@ def ssd_train_phase(gen, card, log):
                                               True):
         raise AssertionError(f"not the mamba2-780m config: {cfg32}")
     tokens = (SSD_TRAIN_COPY["batch"], SSD_TRAIN_COPY["seq"])
-    bwd1 = dict.fromkeys(ssd.BWD_ENTRIES, L)
+
+    def bwd_launches(route, n):
+        """n calls of the route's launches, none of the other route's."""
+        out_ = dict.fromkeys(ssd.BWD_ENTRIES + ssd.BWD_TC_ENTRIES, 0)
+        out_.update({f.__name__: n for f in ssd._BWD_KERNELS[route]})
+        return out_
     out["fp32"] = ssd_copy_grads(
         "train mamba2 fp32", cfg32, dev, tokens,
-        {"ssd_chunked_fma": 2 * L, "ssd_chunked_tc": 0, **bwd1},
-        TRAIN_GRAD_SHARE, TRAIN_LOSS_RTOL)
+        {"ssd_chunked_fma": 2 * L, "ssd_chunked_tc": 0,
+         **bwd_launches("fma", L)}, TRAIN_GRAD_SHARE, TRAIN_LOSS_RTOL)
     cfg16 = cfg32.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
     out["bf16"] = ssd_copy_grads(
         "train mamba2 bf16", cfg16, dev, tokens,
-        {"ssd_chunked_fma": 0, "ssd_chunked_tc": 2 * L, **bwd1},
-        TRAIN_BF16_GRAD_SHARE)
+        {"ssd_chunked_fma": 0, "ssd_chunked_tc": 2 * L,
+         **bwd_launches("tc", L)}, TRAIN_BF16_GRAD_SHARE)
     zcfg = get_config("zamba2-7b").replace(
         n_layers=ZAMBA_TRAIN_COPY["n_layers"], param_dtype="bfloat16",
         compute_dtype="bfloat16")
@@ -1459,7 +1574,7 @@ def ssd_train_phase(gen, card, log):
         "train zamba2 bf16", zcfg, dev,
         (ZAMBA_TRAIN_COPY["batch"], ZAMBA_TRAIN_COPY["seq"]),
         {"ssd_chunked_fma": 0, "ssd_chunked_tc": 2 * zm,
-         **dict.fromkeys(ssd.BWD_ENTRIES, zm)}, TRAIN_BF16_GRAD_SHARE)
+         **bwd_launches("tc", zm)}, TRAIN_BF16_GRAD_SHARE)
 
     # (c) the slice: mamba2-780m at full size, 3 steps of train()
     cfg = get_config(SSD_TRAIN["arch"])
@@ -1480,7 +1595,8 @@ def ssd_train_phase(gen, card, log):
     tokens = SSD_TRAIN["batch"] * SSD_TRAIN["seq"]
     L = cfg.n_layers
     per_step = {"ssd_chunked": 2 * L, "ssd_chunked_tc": 2 * L,
-                "ssd_chunked_bwd": L, **dict.fromkeys(ssd.BWD_ENTRIES, L)}
+                "ssd_chunked_bwd": L,
+                **{f.__name__: L for f in ssd._BWD_KERNELS["tc"]}}
     out["train"] = {
         "arch": cfg.name, "layers": L, "tokens": [SSD_TRAIN["batch"],
                                                   SSD_TRAIN["seq"]],
@@ -1497,8 +1613,9 @@ def ssd_train_phase(gen, card, log):
         raise AssertionError("(c) a loss or grad norm is not finite")
     if any(launches != per_step for launches in
            out["train"]["launches_per_step"]):
-        raise AssertionError(f"(c) want {per_step} a step (no FMA forward, "
-                             f"no SWA kernel); saw "
+        raise AssertionError(f"(c) want {per_step} a step (no FMA forward "
+                             f"or backward past the shared bK1, no SWA "
+                             f"kernel); saw "
                              f"{out['train']['launches_per_step']}")
     del res
     gc.collect()
@@ -3551,27 +3668,43 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     t17 = time.perf_counter()
-    st = ssd_train_phase(gen, card, logs.get("ssd_chunk_bwd", ""))
+    st = ssd_train_phase(gen, card, logs.get("ssd_chunk_bwd", "")
+                         + logs.get("ssd_chunk_bwd_tc", ""))
     sbw, stl = st["path"], st["train"]["launches"]
     # B3's backward: no TPU kernel; the reference's gradient is XLA's
-    # autodiff of the model zoo's ssd_chunked
+    # autodiff of the model zoo's ssd_chunked. The tensor-core route serves
+    # the bf16 train step (phase 17 (c)) after bK1, which both routes
+    # share; the FMA route's bK2 and bK3 the float32 copy (phase 17 (b)),
+    # timed on the step's bf16 input as the comparison
+    fp32_l = st["fp32"]["launches"]
+    backward = {"ms": sbw["ms"], "fma_ms": sbw["fma_ms"],
+                "plain_ms": sbw["plain_ms"], "bound_ms": sbw["bound_ms"],
+                "bound_by": sbw["bound_by"],
+                "max_abs_err": st["bwd_max_abs_err"],
+                "fma_route_bf16_max_abs_err":
+                    st["fma_route_bf16_max_abs_err"],
+                "zamba2_shape_ms": st["zamba2"]["ms"],
+                "zamba2_shape_fma_ms": st["zamba2"]["fma_ms"]}
     ssd_bwd_entries = [{
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
         "gradient_of": "src/repro/models/ssm.py:59",
-        "launches": stl[name],
+        "launches": stl[name] if on_path else fp32_l[name],
+        "train_launches": stl[name], "fp32_copy_launches": fp32_l[name],
         "max_abs_err": st["stage_max_abs_err"][name],
-        "ms": sbw["stage_ms"][name], "plain_ms": sbw["stage_plain_ms"][name],
+        "ms": (sbw["stage_ms"] if on_path else sbw["fma_stage_ms"])[name],
+        "plain_ms": sbw["stage_plain_ms"][name],
         "bound_ms": sbw["stage_bound"][name]["bound_ms"],
         "bound_by": sbw["stage_bound"][name]["bound_by"],
         "library_ms": None,
-        "zamba2_shape_ms": st["zamba2"]["stage_ms"][name],
-        "backward": {"ms": sbw["ms"], "plain_ms": sbw["plain_ms"],
-                     "bound_ms": sbw["bound_ms"], "bound_by": sbw["bound_by"],
-                     "max_abs_err": st["bwd_max_abs_err"],
-                     "zamba2_shape_ms": st["zamba2"]["ms"]}}
-        for name in ssd.BWD_ENTRIES]
+        "zamba2_shape_ms": (st["zamba2"]["stage_ms"] if on_path
+                            else st["zamba2"]["fma_stage_ms"])[name],
+        "backward": backward}
+        for source, names in (("ssd_chunk_bwd", ssd.BWD_ENTRIES),
+                              ("ssd_chunk_bwd_tc", ssd.BWD_TC_ENTRIES))
+        for name in names
+        for on_path in [name in sbw["stage_ms"]]]
     print(json.dumps({"ssd_train_phase": {
         k: st[k] for k in ("fp32", "bf16", "zamba2_bf16", "card")},
         "seconds": time.perf_counter() - t17}), flush=True)

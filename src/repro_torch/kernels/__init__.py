@@ -20,9 +20,11 @@
     kernels on bf16 tensor cores (CUDA C++, ``csrc/ssd_chunk_tc.cu``), the
     prefill path's, and float32 FMA with the chunk loop in one kernel
     (CUDA C++, ``csrc/ssd_chunked.cu``) for float32 and other bf16 shapes;
-    its backward (no TPU kernel: the reference's is XLA's autodiff) in
-    three launches on float32 FMA (CUDA C++, ``csrc/ssd_chunk_bwd.cu``),
-    the ssm and hybrid training paths'
+    its backward (no TPU kernel: the reference's is XLA's autodiff) on
+    bf16 tensor cores (``wgmma`` with TMA-fed stages, CUDA C++,
+    ``csrc/ssd_chunk_bwd_tc.cu``), the bf16 ssm and hybrid training
+    paths', and on float32 FMA (CUDA C++, ``csrc/ssd_chunk_bwd.cu``) for
+    float32, the two sharing its first launch
 
 Each kernel ships with its plain PyTorch version beside it (used on CPU
 tensors and as the comparison on the card) and a launch counter; ref.py
@@ -41,6 +43,10 @@ from .swa import (swa_attention, swa_attention_bwd, swa_attention_bwd_dkdv,
 from .ssd import (ssd_chunk_bwd_dstate, ssd_chunk_bwd_dstate_plain,
                   ssd_chunk_bwd_grads, ssd_chunk_bwd_grads_plain,
                   ssd_chunk_bwd_scan, ssd_chunk_bwd_scan_plain,
+                  ssd_chunk_bwd_tc_dbdc, ssd_chunk_bwd_tc_dbdc_plain,
+                  ssd_chunk_bwd_tc_dgs, ssd_chunk_bwd_tc_dgs_plain,
+                  ssd_chunk_bwd_tc_head, ssd_chunk_bwd_tc_head_plain,
+                  ssd_chunk_bwd_tc_scan, ssd_chunk_bwd_tc_scan_plain,
                   ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state,
                   ssd_chunk_state_plain, ssd_chunked, ssd_chunked_bwd,
                   ssd_chunked_bwd_plain, ssd_chunked_bwd_stages_plain,

@@ -25,10 +25,14 @@ Two CUDA routes compute it on the card:
 another. On a CUDA tensor under grad it runs through ``_SsdChunked``: the
 forward is the routed kernel, keeping la and the states entering the
 chunks (the tensor-core route's own workspaces; the FMA kernel writes
-them when asked), and the backward is the hand-written
-``csrc/ssd_chunk_bwd.cu`` (``ssd_chunked_bwd``, three launches that
-``_bwd_route`` names: bK1 ``ssd_chunk_bwd_dstate``, bK2
-``ssd_chunk_bwd_scan``, bK3 ``ssd_chunk_bwd_grads``); the chain from
+them when asked), and the backward is ``ssd_chunked_bwd``, the route
+that ``_bwd_route`` names: for float32 ``csrc/ssd_chunk_bwd.cu`` on FMA
+(bK1 ``ssd_chunk_bwd_dstate``, bK2 ``ssd_chunk_bwd_scan``, bK3
+``ssd_chunk_bwd_grads``), for bf16 ``csrc/ssd_chunk_bwd_tc.cu`` on bf16
+tensor cores after the same bK1 (``ssd_chunk_bwd_tc_scan``, the scan with
+a state split over blocks; ``ssd_chunk_bwd_tc_dgs``, the gradient of C B^T
+summed over heads once per chunk; ``ssd_chunk_bwd_tc_dbdc``, dB and dC;
+``ssd_chunk_bwd_tc_head``, dx, d dts and d da); the chain from
 softplus(dt) and dt * a to dt and A_log stays with autograd. On the CPU
 the plain version stays differentiable by autograd.
 ``ssd_chunked.launches`` counts its calls, each route's entry its
@@ -38,8 +42,10 @@ its launches. ``ssd_chunk_state_plain``, ``ssd_state_scan_plain`` and
 ``ssd_chunk_out_plain`` are the three forward kernels' functions in plain
 PyTorch, composed they give ``ssd_chunked_plain``'s result;
 ``ssd_chunk_bwd_dstate_plain``, ``ssd_chunk_bwd_scan_plain`` and
-``ssd_chunk_bwd_grads_plain`` the backward's, composed in
-``ssd_chunked_bwd_plain`` (tests and ``chip_smoke.py`` only).
+``ssd_chunk_bwd_grads_plain`` the FMA backward's, and the
+``ssd_chunk_bwd_tc_*_plain`` the tensor-core backward's, each route's
+composed in ``ssd_chunked_bwd_plain`` (tests and ``chip_smoke.py``
+only).
 
 Numerics follow the model zoo's ``models/ssm.py:ssd_chunked``, the function
 the JAX model path calls: softplus(dt) and a = -exp(A_log) in float32
@@ -586,18 +592,21 @@ def ssd_chunk_bwd_grads_plain(x, dts, la, B, C, D, dy, s_in, g, dle, *,
 
 
 def ssd_chunked_bwd_plain(x, dts, da, B, C, D, dy, dstate=None, *,
-                          chunk: int, init_state=None):
+                          chunk: int, init_state=None, route="fma"):
     """The backward of the chunk scan in plain PyTorch, from the forward's
     own inputs (dts and da as ``_discretize`` gives them) and the
     gradients of y and of the final state (None for zero) -> (dx, d dts,
     d da, dB, dC, dD, d init_state): la and the entering states from the
-    plain forward stages, then bK1, bK2 and bK3's plain versions. Not
-    autograd of the plain forward: the kernel's decomposition, written
+    plain forward stages, then the plain versions of the launches of
+    ``route``: ``"fma"`` bK1, bK2 and bK3 (``csrc/ssd_chunk_bwd.cu``),
+    ``"tc"`` bK1, scan, dgs, dbdc and head (``csrc/ssd_chunk_bwd_tc.cu``).
+    Not autograd of the plain forward: the kernels' decomposition, written
     out."""
     Q = min(chunk, x.shape[1])
     la, ds = ssd_chunk_state_plain(x, dts, da, B, chunk=Q)
     s_in, _ = ssd_state_scan_plain(la, ds, chunk=Q, init_state=init_state)
-    return _bwd_stages(_BWD_PLAIN, x, dts, la, B, C, D, s_in, dy, dstate, Q)
+    return _BWD_RUNS[route](_BWD_PLAIN[route], x, dts, la, B, C, D, s_in,
+                            dy, dstate, Q)
 
 
 def ssd_chunked_bwd_stages_plain(x, dts, la, B, C, D, s_in, dy, dstate=None,
@@ -606,8 +615,8 @@ def ssd_chunked_bwd_stages_plain(x, dts, la, B, C, D, s_in, dy, dstate=None,
     from the forward's saved la and entering states (``ssd_chunked_bwd``
     takes it on a CPU tensor; tests and ``chip_smoke.py`` stand it in for
     the kernel on the card)."""
-    return _bwd_stages(_BWD_PLAIN, x, dts, la, B, C, D, s_in, dy, dstate,
-                       min(chunk, x.shape[1]))
+    return _bwd_stages(_BWD_PLAIN["fma"], x, dts, la, B, C, D, s_in, dy,
+                       dstate, min(chunk, x.shape[1]))
 
 
 def _bwd_stages(stages, x, dts, la, B, C, D, s_in, dy, dstate, Q):
@@ -619,22 +628,157 @@ def _bwd_stages(stages, x, dts, la, B, C, D, s_in, dy, dstate, Q):
     return dx, ddts, dda, dB, dC, dD, dinit
 
 
-BWD_P = 64                       # the backward kernel's head dim
+def _slice_sums(t, size):
+    """Sums of the last dimension in consecutive slices of ``size`` (the
+    last one shorter where it does not divide), in slice order."""
+    return torch.stack([t[..., i:i + size].sum(-1)
+                        for i in range(0, t.shape[-1], size)], -1)
+
+
+def ssd_chunk_bwd_tc_scan_plain(la, R, s_in, *, chunk: int, dstate=None):
+    """The tensor-core route's scan: bK2's g and init_state's gradient, and
+    <g_c, S_c> as partial sums over slices of BWD_SLICE entries of each
+    (b, chunk, head) state, (b, nc, H, slices), without the decay (the
+    head stage adds them in slice order and applies exp(la_end))."""
+    g, dinit, _ = ssd_chunk_bwd_scan_plain(la, R, s_in, chunk=chunk,
+                                           dstate=dstate)
+    b, nc, H, P, N = g.shape
+    return g, dinit, _slice_sums((g * s_in).reshape(b, nc, H, P * N),
+                                 BWD_SLICE)
+
+
+def ssd_chunk_bwd_tc_dgs_plain(x, dts, la, dy, *, chunk: int):
+    """dGs = sum_h dW_h * M_h * dts_h on the causal triangle of each chunk,
+    float32 (b, nc, Q, Q), zero above the diagonal: the head-summed
+    gradient of C B^T."""
+    b, L, H, P = x.shape
+    Q, nc = chunk, L // chunk
+    la = la.float().reshape(b, nc, Q, H)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    out = torch.empty((b, nc, Q, Q), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        rows = slice(c * Q, (c + 1) * Q)
+        lq = la[:, c]
+        M = torch.exp((lq[:, :, None, :] - lq[:, None, :, :]).masked_fill(
+            ~causal[None, :, :, None], float("-inf")))
+        dW = torch.einsum("bshp,bthp->bsth", dy[:, rows].float(),
+                          x[:, rows].float())
+        out[:, c] = (dW * M * dts[:, rows].float()[:, None]).sum(-1)
+    return out
+
+
+def ssd_chunk_bwd_tc_dbdc_plain(x, dts, la, B, C, dy, s_in, g, dgs, *,
+                                chunk: int):
+    """dB and dC in B's dtype from the head-summed dGs: dC = dGs B +
+    sum_h exp(la) dy S_c, dB = dGs^T C + sum_h w x g_c, w = exp(la_end -
+    la) dts; and the row sums qc = sum_n C (dy S_c) and xg = sum_n B (x
+    g_c), float32 (boxes, b, L, H), one partial a box of BWD_BOX state
+    columns (the head stage adds them in box order)."""
+    b, L, H, P = x.shape
+    N, Q = B.shape[-1], chunk
+    la = la.float().reshape(b, L // Q, Q, H)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    nbox = -(-N // BWD_BOX)
+    qc = torch.empty((nbox, b, L, H), dtype=torch.float32, device=x.device)
+    xg = torch.empty_like(qc)
+    for c in range(L // Q):
+        rows = slice(c * Q, (c + 1) * Q)
+        xq, dyq = x[:, rows].float(), dy[:, rows].float()
+        Bq, Cq = B[:, rows].float(), C[:, rows].float()
+        lq, dtq = la[:, c], dts[:, rows].float()
+        w = torch.exp(lq[:, -1:] - lq) * dtq
+        dyS = torch.einsum("bshp,bhpn->bshn", dyq, s_in[:, c])
+        xG = torch.einsum("bthp,bhpn->bthn", xq, g[:, c])
+        dC[:, rows] = (torch.einsum("bst,btn->bsn", dgs[:, c], Bq)
+                       + torch.einsum("bsh,bshn->bsn", torch.exp(lq), dyS)
+                       ).to(C.dtype)
+        dB[:, rows] = (torch.einsum("bst,bsn->btn", dgs[:, c], Cq)
+                       + torch.einsum("bth,bthn->btn", w, xG)).to(B.dtype)
+        qc[:, :, rows] = _slice_sums(dyS * Cq[:, :, None], BWD_BOX
+                                     ).permute(3, 0, 1, 2)
+        xg[:, :, rows] = _slice_sums(xG * Bq[:, :, None], BWD_BOX
+                                     ).permute(3, 0, 1, 2)
+    return dB, dC, qc, xg
+
+
+def ssd_chunk_bwd_tc_head_plain(x, dts, la, B, C, D, dy, g, dlep, qc, xg, *,
+                                chunk: int):
+    """The per-head gradients: dx in x's dtype, d dts and d da float32 (b,
+    L, H), D's partial sums dy.x (b, nc, H); the state's and C S^T's terms
+    of d la and d dts from the dbdc stage's row sums (qc, xg) and the
+    scan's slices of <g, S> (dlep)."""
+    b, L, H, P = x.shape
+    Q = chunk
+    la = la.float().reshape(b, L // Q, Q, H)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    dx = torch.empty_like(x)
+    ddts = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
+    dda = torch.empty_like(ddts)
+    dDp = torch.empty((b, L // Q, H), dtype=torch.float32, device=x.device)
+    qs, xs = qc.sum(0), xg.sum(0)
+    Df = D.float()[:, None]
+    for c in range(L // Q):
+        rows = slice(c * Q, (c + 1) * Q)
+        xq, dyq = x[:, rows].float(), dy[:, rows].float()
+        Bq, Cq = B[:, rows].float(), C[:, rows].float()
+        dtq, lq = dts[:, rows].float(), la[:, c]
+        M = torch.exp((lq[:, :, None, :] - lq[:, None, :, :]).masked_fill(
+            ~causal[None, :, :, None], float("-inf")))
+        GM = torch.einsum("bsn,btn->bst", Cq, Bq)[..., None] * M
+        del M
+        dWGM = torch.einsum("bshp,bthp->bsth", dyq, xq) * GM
+        gB = torch.einsum("btn,bhpn->bthp", Bq, g[:, c])
+        e_end = torch.exp(lq[:, -1:] - lq)
+        dxq = torch.einsum("bsth,bshp->bthp", GM * dtq[:, None], dyq)
+        dx[:, rows] = (dxq + (e_end * dtq)[..., None] * gB
+                       + Df * dyq).to(x.dtype)
+        u = e_end * xs[:, rows]
+        ddts[:, rows] = dWGM.sum(1) + u
+        v = dtq * u
+        A = dWGM * dtq[:, None]
+        del dWGM, GM
+        dla = A.sum(2) - A.sum(1) + torch.exp(lq) * qs[:, rows] - v
+        dla[:, -1] += torch.exp(lq[:, -1]) * dlep[:, c].sum(-1) + v.sum(1)
+        dda[:, rows] = dla.flip(1).cumsum(1).flip(1)
+        dDp[:, c] = (dyq * xq).sum((1, 3))
+    return dx, ddts, dda, dDp
+
+
+def _bwd_tc_stages(stages, x, dts, la, B, C, D, s_in, dy, dstate, Q):
+    """The tensor-core route's five launches (bK1, scan, dgs, dbdc, head),
+    or their plain versions, composed."""
+    dstate_fn, scan_fn, dgs_fn, dbdc_fn, head_fn = stages
+    R = dstate_fn(dy, C, la, chunk=Q)
+    g, dinit, dlep = scan_fn(la, R, s_in, chunk=Q, dstate=dstate)
+    dgs = dgs_fn(x, dts, la, dy, chunk=Q)
+    dB, dC, qc, xg = dbdc_fn(x, dts, la, B, C, dy, s_in, g, dgs, chunk=Q)
+    dx, ddts, dda, dDp = head_fn(x, dts, la, B, C, D, dy, g, dlep, qc, xg,
+                                 chunk=Q)
+    return dx, ddts, dda, dB, dC, dDp.sum((0, 1)), dinit
+
+
+BWD_P = 64                       # the backward kernels' head dim
+BWD_SLICE = 1024                 # state entries of a block of the tc scan
+BWD_BOX = 64                     # state columns of a tc dbdc block
 
 
 def _bwd_route(dtype, P: int, N: int, Q: int) -> str:
-    """The backward kernel that takes a CUDA input of this dtype and shape:
-    ``"fma"`` (``csrc/ssd_chunk_bwd.cu``: float32 or bf16, P 64, N 64 or
-    128, Q a multiple of 64 up to 256: mamba2-780m's and zamba2-7b's
-    mixers). Raises on what it does not take."""
-    if dtype in _DTYPES and P == BWD_P and N in KERNEL_N \
-            and Q % TC_STEP == 0 and 0 < Q <= Q_MAX:
-        return "fma"
+    """The backward kernel that takes a CUDA input of this dtype and shape
+    (P 64, N 64 or 128, Q a multiple of 64 up to 256: mamba2-780m's and
+    zamba2-7b's mixers): ``"tc"`` for bf16 (``csrc/ssd_chunk_bwd_tc.cu``,
+    bf16 tensor cores) and ``"fma"`` for float32
+    (``csrc/ssd_chunk_bwd.cu``, float32 FMA). Raises on anything else."""
+    if P == BWD_P and N in KERNEL_N and Q % TC_STEP == 0 \
+            and 0 < Q <= Q_MAX:
+        if dtype == torch.bfloat16:
+            return "tc"
+        if dtype == torch.float32:
+            return "fma"
     raise ValueError(f"no SSD backward kernel takes {dtype} with P={P}, "
-                     f"N={N}, Q={Q}: the FMA backward takes float32 or bf16 "
-                     f"with P {BWD_P}, N in {KERNEL_N} and Q a multiple of "
-                     f"{TC_STEP} up to {Q_MAX} (64-row tiles, no ragged "
-                     f"edge)")
+                     f"N={N}, Q={Q}: the tensor-core backward takes bf16 "
+                     f"and the FMA backward float32, with P {BWD_P}, N in "
+                     f"{KERNEL_N} and Q a multiple of {TC_STEP} up to "
+                     f"{Q_MAX} (64-row tiles, no ragged edge)")
 
 
 @functools.cache
@@ -648,21 +792,21 @@ def _bwd_fn():
 
 
 def bwd_smem_bytes(N: int) -> dict:
-    """Dynamic shared memory of each backward launch at state size N (Q
-    256; builds the kernel's library)."""
-    fn = _build.load("ssd_chunk_bwd").ssd_chunk_bwd_smem
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    return {name: fn(i, 256, N) for i, name in enumerate(BWD_ENTRIES)}
+    """Dynamic shared memory of each backward launch of both routes at
+    state size N (Q 256; builds the kernels' libraries)."""
+    out = {}
+    for src, names in (("ssd_chunk_bwd", BWD_ENTRIES),
+                       ("ssd_chunk_bwd_tc", BWD_TC_ENTRIES)):
+        fn = getattr(_build.load(src), f"{src}_smem")
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        out.update({name: fn(i, 256, N) for i, name in enumerate(names)})
+    return out
 
 
-def _bwd_launch(stage: str, dims, dtype, *, x=None, dts=None, la=None,
-                B=None, C=None, D=None, dy=None, st=None, gbuf=None,
-                dstate=None, dinit=None, dle=None, dx=None, ddts=None,
-                dda=None, dB=None, dC=None, dDp=None):
-    """One entry of ``csrc/ssd_chunk_bwd.cu`` on the current stream, for
-    dims (b, L, H, P, N, Q) and x's dtype. A stage reads only its own
-    tensors; the others may be None."""
-    name = f"ssd_chunk_bwd_{stage}"
+def _bwd_checks(name, dims, dtype, la, x, B, C, dy):
+    """The checks shared by both backward kernels' launches, for dims (b,
+    L, H, P, N, Q) and x's dtype -> (the device, the element strides of x,
+    B and C, zeros for a None)."""
     b, L, H, P, N, Q = dims
     dev = la.device
     if dev.type != "cuda":
@@ -674,11 +818,22 @@ def _bwd_launch(stage: str, dims, dtype, *, x=None, dts=None, la=None,
     _bwd_route(dtype, P, N, Q)
     if H > 65535 or b > 65535:
         raise ValueError(f"{name} takes b and H up to 65535; got {b}, {H}")
-    for label, t in (("B", B), ("C", C), ("dy", dy)):
+    for label, t in (("x", x), ("B", B), ("C", C), ("dy", dy)):
         if t is not None and t.dtype != dtype:
             raise TypeError(f"{name}: {label} must be {dtype}; got {t.dtype}")
-    strides = [(0,) * n if t is None else _kernel_operand(label, t, n)
-               for label, t, n in (("x", x, 3), ("B", B, 2), ("C", C, 2))]
+    return dev, [(0,) * n if t is None else _kernel_operand(label, t, n)
+                 for label, t, n in (("x", x, 3), ("B", B, 2), ("C", C, 2))]
+
+
+def _bwd_launch(stage: str, dims, dtype, *, x=None, dts=None, la=None,
+                B=None, C=None, D=None, dy=None, st=None, gbuf=None,
+                dstate=None, dinit=None, dle=None, dx=None, ddts=None,
+                dda=None, dB=None, dC=None, dDp=None):
+    """One entry of ``csrc/ssd_chunk_bwd.cu`` on the current stream, for
+    dims (b, L, H, P, N, Q) and x's dtype. A stage reads only its own
+    tensors; the others may be None."""
+    name = f"ssd_chunk_bwd_{stage}"
+    dev, strides = _bwd_checks(name, dims, dtype, la, x, B, C, dy)
     ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -750,12 +905,142 @@ def ssd_chunk_bwd_grads(x, dts, la, B, C, D, dy, s_in, g, dle, *,
     return dx, ddts, dda, dB, dC, dDp.sum((0, 1))
 
 
+@functools.cache
+def _bwd_tc_fn():
+    fn = _build.load("ssd_chunk_bwd_tc").ssd_chunk_bwd_tc
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 22
+                   + [ctypes.c_int] * 6 + [ctypes.c_int64] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_tc_launch(stage: str, dims, *, x=None, dts=None, la=None, B=None,
+                   C=None, D=None, dy=None, st=None, R=None, g=None,
+                   dstate=None, dinit=None, dlep=None, dgs=None, dB=None,
+                   dC=None, qc=None, xg=None, dx=None, ddts=None, dda=None,
+                   dDp=None):
+    """One launch of ``csrc/ssd_chunk_bwd_tc.cu`` on the current stream,
+    for dims (b, L, H, P, N, Q) of bf16 inputs. A stage reads only its own
+    tensors; the others may be None."""
+    name = f"ssd_chunk_bwd_tc_{stage}"
+    dev, strides = _bwd_checks(name, dims, torch.bfloat16, la, x, B, C, dy)
+    ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _bwd_tc_fn()(
+            BWD_TC_ENTRIES.index(name), ptr(x), ptr(dts), ptr(la), ptr(B),
+            ptr(C), ptr(D), ptr(dy), ptr(st), ptr(R), ptr(g), ptr(dstate),
+            ptr(dinit), ptr(dlep), ptr(dgs), ptr(dB), ptr(dC), ptr(qc),
+            ptr(xg), ptr(dx), ptr(ddts), ptr(dda), ptr(dDp), *dims,
+            *(v for t in strides for v in t), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: error {err}")
+
+
+def ssd_chunk_bwd_tc_scan(la, R, s_in, *, chunk: int, dstate=None):
+    """The tensor-core route's scan alone on CUDA tensors: ``R`` (b, nc, H,
+    P, N), contiguous float32, holds bK1's sums and is overwritten with g;
+    returns (R, the gradient of init_state, the slices of <g, S>), as
+    ``ssd_chunk_bwd_tc_scan_plain``."""
+    b, nc, H, P, N = R.shape
+    if R.dtype != torch.float32 or not R.is_contiguous() \
+            or tuple(s_in.shape) != tuple(R.shape) \
+            or tuple(la.shape) != (b, nc * chunk, H):
+        raise ValueError(f"R must be contiguous float32, s_in {tuple(R.shape)}"
+                         f" and la {(b, nc * chunk, H)}; got {R.dtype}, "
+                         f"{tuple(s_in.shape)}, {tuple(la.shape)}")
+    dinit = torch.empty((b, H, P, N), dtype=torch.float32, device=R.device)
+    dlep = torch.empty((b, nc, H, P * N // BWD_SLICE), dtype=torch.float32,
+                       device=R.device)
+    _bwd_tc_launch("scan", (b, nc * chunk, H, P, N, chunk), la=_f32(la),
+                   st=_f32(s_in), R=R, g=R,
+                   dstate=None if dstate is None else _f32(dstate),
+                   dinit=dinit, dlep=dlep)
+    ssd_chunk_bwd_tc_scan.launches += 1
+    return R, dinit, dlep
+
+
+def ssd_chunk_bwd_tc_dgs(x, dts, la, dy, *, chunk: int):
+    """dgs alone on CUDA tensors -> dGs (b, nc, Q, Q) float32, as
+    ``ssd_chunk_bwd_tc_dgs_plain`` on the causal tiles (the tiles above the
+    diagonal are not written)."""
+    b, L, H, P = x.shape
+    Q = min(chunk, L)
+    dgs = torch.empty((b, L // Q, Q, Q), dtype=torch.float32,
+                      device=x.device)
+    # N does not enter dgs; BWD_BOX stands in for it
+    _bwd_tc_launch("dgs", (b, L, H, P, BWD_BOX, Q), x=x, dts=_f32(dts),
+                   la=_f32(la), dy=dy.contiguous(), dgs=dgs)
+    ssd_chunk_bwd_tc_dgs.launches += 1
+    return dgs
+
+
+def ssd_chunk_bwd_tc_dbdc(x, dts, la, B, C, dy, s_in, g, dgs, *,
+                          chunk: int):
+    """dbdc alone on CUDA tensors -> (dB, dC, qc, xg), as
+    ``ssd_chunk_bwd_tc_dbdc_plain``."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    dims = (b, L, H, P, N, min(chunk, L))
+    dB = torch.empty((b, L, N), dtype=B.dtype, device=x.device)
+    dC = torch.empty((b, L, N), dtype=C.dtype, device=x.device)
+    qc = torch.empty((N // BWD_BOX, b, L, H), dtype=torch.float32,
+                     device=x.device)
+    xg = torch.empty_like(qc)
+    _bwd_tc_launch("dbdc", dims, x=x, dts=_f32(dts), la=_f32(la), B=B, C=C,
+                   dy=dy.contiguous(), st=_f32(s_in), g=_f32(g),
+                   dgs=_f32(dgs), dB=dB, dC=dC, qc=qc, xg=xg)
+    ssd_chunk_bwd_tc_dbdc.launches += 1
+    return dB, dC, qc, xg
+
+
+def ssd_chunk_bwd_tc_head(x, dts, la, B, C, D, dy, g, dlep, qc, xg, *,
+                          chunk: int):
+    """head alone on CUDA tensors -> (dx, d dts, d da, D's partial sums
+    (b, nc, H)), as ``ssd_chunk_bwd_tc_head_plain``."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    dims = (b, L, H, P, N, min(chunk, L))
+    dx = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
+    ddts = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
+    dda = torch.empty_like(ddts)
+    dDp = torch.empty((b, L // dims[5], H), dtype=torch.float32,
+                      device=x.device)
+    _bwd_tc_launch("head", dims, x=x, dts=_f32(dts), la=_f32(la), B=B, C=C,
+                   D=_f32(D), dy=dy.contiguous(), g=_f32(g), dlep=_f32(dlep),
+                   qc=_f32(qc), xg=_f32(xg), dx=dx, ddts=ddts, dda=dda,
+                   dDp=dDp)
+    ssd_chunk_bwd_tc_head.launches += 1
+    return dx, ddts, dda, dDp
+
+
 BWD_ENTRIES = ("ssd_chunk_bwd_dstate", "ssd_chunk_bwd_scan",
                "ssd_chunk_bwd_grads")
-_BWD_PLAIN = (ssd_chunk_bwd_dstate_plain, ssd_chunk_bwd_scan_plain,
-              ssd_chunk_bwd_grads_plain)
+BWD_TC_ENTRIES = ("ssd_chunk_bwd_tc_scan", "ssd_chunk_bwd_tc_dgs",
+                  "ssd_chunk_bwd_tc_dbdc", "ssd_chunk_bwd_tc_head")
+_BWD_PLAIN = {
+    "fma": (ssd_chunk_bwd_dstate_plain, ssd_chunk_bwd_scan_plain,
+            ssd_chunk_bwd_grads_plain),
+    "tc": (ssd_chunk_bwd_dstate_plain, ssd_chunk_bwd_tc_scan_plain,
+           ssd_chunk_bwd_tc_dgs_plain, ssd_chunk_bwd_tc_dbdc_plain,
+           ssd_chunk_bwd_tc_head_plain)}
+# each route's launches in order; the tc route shares bK1 with the FMA one
 _BWD_KERNELS = {"fma": (ssd_chunk_bwd_dstate, ssd_chunk_bwd_scan,
-                        ssd_chunk_bwd_grads)}
+                        ssd_chunk_bwd_grads),
+                "tc": (ssd_chunk_bwd_dstate, ssd_chunk_bwd_tc_scan,
+                       ssd_chunk_bwd_tc_dgs, ssd_chunk_bwd_tc_dbdc,
+                       ssd_chunk_bwd_tc_head)}
+_BWD_RUNS = {"fma": _bwd_stages, "tc": _bwd_tc_stages}
+
+
+def bwd_run(route, x, dts, la, B, C, D, s_in, dy, dstate=None, *,
+            chunk: int):
+    """The launches of backward route ``route`` on CUDA tensors (the
+    FMA route also takes bf16: ``chip_smoke.py`` times it on the tc
+    route's input) -> (dx, d dts, d da, dB, dC, dD, d init_state)."""
+    return _BWD_RUNS[route](_BWD_KERNELS[route], x, dts, la, B, C, D, s_in,
+                            dy, dstate, min(chunk, x.shape[1]))
 
 
 def ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dstate=None, *,
@@ -765,17 +1050,17 @@ def ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dstate=None, *,
     (dx, d dts, d da, dB, dC, dD, d init_state); ``dstate``, the final
     state's gradient, may be None (zero).
 
-    On a CUDA tensor: the three launches of the kernel that ``_bwd_route``
-    names, on the current stream (no atomics: two calls give the same
-    bits). On a CPU tensor: the three plain stages."""
+    On a CUDA tensor: the launches of the route that ``_bwd_route`` names,
+    on the current stream (bf16: bK1, then the tensor-core scan, dgs, dbdc
+    and head; float32: bK1, bK2 and bK3 on FMA; no atomics: two calls give
+    the same bits). On a CPU tensor: the FMA route's three plain stages."""
     Q = min(chunk, x.shape[1])
     if x.device.type == "cpu":
         out = ssd_chunked_bwd_stages_plain(x, dts, la, B, C, D, s_in, dy,
                                            dstate, chunk=Q)
     elif x.device.type == "cuda":
-        out = _bwd_stages(
-            _BWD_KERNELS[_bwd_route(x.dtype, x.shape[3], B.shape[-1], Q)],
-            x, dts, la, B, C, D, s_in, dy, dstate, Q)
+        out = bwd_run(_bwd_route(x.dtype, x.shape[3], B.shape[-1], Q),
+                      x, dts, la, B, C, D, s_in, dy, dstate, chunk=Q)
         ssd_chunked_bwd.launches += 1
     else:
         raise ValueError(f"unsupported device {x.device}")
@@ -850,3 +1135,7 @@ ssd_chunked_bwd.launches = 0
 ssd_chunk_bwd_dstate.launches = 0
 ssd_chunk_bwd_scan.launches = 0
 ssd_chunk_bwd_grads.launches = 0
+ssd_chunk_bwd_tc_scan.launches = 0
+ssd_chunk_bwd_tc_dgs.launches = 0
+ssd_chunk_bwd_tc_dbdc.launches = 0
+ssd_chunk_bwd_tc_head.launches = 0

@@ -37,7 +37,9 @@ from ..configs import SHAPES, get_config, get_smoke
 from ..data import TokenStream
 from ..device import resolve_device, synchronize
 from ..kernels import (ssd_chunk_bwd_dstate, ssd_chunk_bwd_grads,
-                       ssd_chunk_bwd_scan, ssd_chunked, ssd_chunked_bwd,
+                       ssd_chunk_bwd_scan, ssd_chunk_bwd_tc_dbdc,
+                       ssd_chunk_bwd_tc_dgs, ssd_chunk_bwd_tc_head,
+                       ssd_chunk_bwd_tc_scan, ssd_chunked, ssd_chunked_bwd,
                        ssd_chunked_fma, ssd_chunked_tc, swa_attention,
                        swa_attention_bwd_dkdv,
                        swa_attention_bwd_dq, swa_attention_bwd_stats,
@@ -58,7 +60,9 @@ COUNTERS = (swa_attention, swa_attention_wgmma, swa_attention_fma,
             swa_attention_bwd_wgmma_dq, swa_attention_bwd_stats,
             swa_attention_bwd_dkdv, swa_attention_bwd_dq, ssd_chunked,
             ssd_chunked_tc, ssd_chunked_fma, ssd_chunked_bwd,
-            ssd_chunk_bwd_dstate, ssd_chunk_bwd_scan, ssd_chunk_bwd_grads)
+            ssd_chunk_bwd_dstate, ssd_chunk_bwd_scan, ssd_chunk_bwd_grads,
+            ssd_chunk_bwd_tc_scan, ssd_chunk_bwd_tc_dgs,
+            ssd_chunk_bwd_tc_dbdc, ssd_chunk_bwd_tc_head)
 
 
 @dataclasses.dataclass

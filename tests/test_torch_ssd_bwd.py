@@ -239,19 +239,21 @@ def test_function_without_a_final_state_gradient(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,P,N,Q,route", [
-    (torch.bfloat16, 64, 128, 256, "fma"), (torch.float32, 64, 64, 64, "fma"),
-    (torch.bfloat16, 64, 64, 128, "fma"), (torch.bfloat16, 32, 128, 256, None),
+    (torch.bfloat16, 64, 128, 256, "tc"), (torch.float32, 64, 64, 64, "fma"),
+    (torch.bfloat16, 64, 64, 128, "tc"), (torch.float32, 64, 128, 256, "fma"),
+    (torch.bfloat16, 64, 64, 192, "tc"), (torch.bfloat16, 32, 128, 256, None),
     (torch.float32, 64, 96, 256, None), (torch.bfloat16, 64, 128, 96, None),
-    (torch.float16, 64, 128, 256, None)])
+    (torch.bfloat16, 64, 128, 320, None), (torch.float16, 64, 128, 256, None)])
 def test_bwd_route_names_the_kernel_or_raises(dtype, P, N, Q, route):
-    """P 64, N 64 or 128, Q a multiple of 64 up to 256, float32 or bf16
-    (mamba2-780m's and zamba2-7b's mixers); anything else raises with its
-    reason."""
+    """P 64, N 64 or 128, Q a multiple of 64 up to 256 (mamba2-780m's and
+    zamba2-7b's mixers): bf16 on the tensor-core route, float32 on the FMA
+    one; anything else raises with its reason."""
     if route is None:
         with pytest.raises(ValueError, match="no SSD backward kernel"):
             ssd._bwd_route(dtype, P, N, Q)
     else:
         assert ssd._bwd_route(dtype, P, N, Q) == route
+        assert ssd._BWD_KERNELS[route][0] is ssd_chunk_bwd_dstate
 
 
 def test_bwd_entries_raise_on_a_cpu_tensor():
@@ -297,19 +299,26 @@ def _hold(got, exp):
             _close(g, e, 1e-4, name)
 
 
+ROUTES = [(torch.float32, "fma"), (torch.bfloat16, "fma"),
+          (torch.bfloat16, "tc")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,route", ROUTES,
+                         ids=["fp32-fma", "bf16-fma", "bf16-tc"])
 @pytest.mark.parametrize("b,L,H,N,Q,slow,init,dstate", [
     (2, 64, 1, 64, 64, False, False, False), (2, 256, 3, 128, 64, True,
                                               True, True),
     (1, 1024, 3, 128, 256, False, True, False), (2, 256, 1, 64, 256, True,
                                                  False, True)])
-def test_cuda_bwd_kernel_matches_plain(cuda, dtype, b, L, H, N, Q, slow, init,
-                                       dstate):
-    """The three launches on strided x/B/C views as ``mamba_block`` passes
-    them, from the routed forward's own la and entering states, against
-    the plain backward; two calls give the same bits; each launch counts
-    once."""
+def test_cuda_bwd_kernel_matches_plain(cuda, dtype, route, b, L, H, N, Q,
+                                       slow, init, dstate):
+    """Each route's launches on strided x/B/C views as ``mamba_block``
+    passes them, from the routed forward's own la and entering states,
+    against the plain backward; two calls give the same bits; each launch
+    counts once. The route that ``_bwd_route`` names is the one
+    ``ssd_chunked_bwd`` takes (the FMA route also takes bf16: it is the
+    comparison on the tensor-core route's input)."""
     x, dt, B, C, A_log, D, s0, dy, dS = _inputs(
         L + H + N, b, L, H, 64, N, slow=slow, init=init, dstate=dstate,
         device=cuda)
@@ -320,15 +329,21 @@ def test_cuda_bwd_kernel_matches_plain(cuda, dtype, b, L, H, N, Q, slow, init,
     dts, da = ssd._discretize(dt, A_log)
     _, _, la, s_in = ssd.ssd_chunked_fwd(x, dts, da, B, C, D, chunk=Q,
                                          init_state=s0)
-    fns = ssd._BWD_KERNELS["fma"]
+    fns = ssd._BWD_KERNELS[route]
     before = [f.launches for f in fns]
-    got = ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dS, chunk=Q)
+    if route == ssd._bwd_route(dtype, 64, N, Q):
+        run = lambda: ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy,  # noqa
+                                      dS, chunk=Q)
+    else:
+        run = lambda: ssd.bwd_run(route, x, dts, la, B, C, D, s_in, dy,  # noqa
+                                  dS, chunk=Q)
+    got = run()
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1]
+    assert [f.launches - n for f, n in zip(fns, before)] == [1] * len(fns)
     exp = ssd_chunked_bwd_plain(x, dts, da, B, C, D, dy, dS, chunk=Q,
                                 init_state=s0)
     _hold(got, exp)
-    again = ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dS, chunk=Q)
+    again = run()
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
@@ -336,8 +351,9 @@ def test_cuda_bwd_kernel_matches_plain(cuda, dtype, b, L, H, N, Q, slow, init,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_mixer_gradient_flows_through_the_kernels(cuda, dtype):
     """A mamba2 mixer under grad on the card: ``ssd_chunked`` runs its
-    routed forward and the backward kernel (one call of each of its
-    launches); the gradients of the mixer's weights equal the plain
+    routed forward and the routed backward (one call of each of its
+    launches: the tensor-core route in bf16, FMA in float32); the
+    gradients of the mixer's weights equal the plain
     route's within 1e-4 of each leaf's largest in float32 and 2e-2 in
     bf16 (the two forwards round y differently)."""
     from unittest import mock
@@ -357,10 +373,11 @@ def test_cuda_mixer_gradient_flows_through_the_kernels(cuda, dtype):
         leaves = {n: t.clone().requires_grad_() for n, t in p.items()}
         tssm.mamba_block(leaves, x, cfg).float().pow(2).sum().backward()
         return {n: t.grad for n, t in leaves.items()}
-    before = ssd_chunk_bwd_grads.launches
+    last = ssd._BWD_KERNELS[ssd._bwd_route(dtype, 64, 64, 64)][-1]
+    before = last.launches
     kern = grads()
     torch.cuda.synchronize()
-    assert ssd_chunk_bwd_grads.launches == before + 1
+    assert last.launches == before + 1
     with mock.patch.object(ssd, "ssd_chunked_fwd", ssd_chunked_fwd_plain), \
             mock.patch.object(ssd, "ssd_chunked_bwd",
                               ssd.ssd_chunked_bwd_stages_plain):

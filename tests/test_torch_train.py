@@ -273,9 +273,11 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ssd_under_grad_runs_the_backward_kernel(cuda, dtype):
     """On the card the chunk scan under grad runs its routed forward and,
-    in the backward, the three launches of ``csrc/ssd_chunk_bwd.cu``; x's
-    gradient equals the plain backward's (float32 within 1e-4 of its
-    largest, bf16 one ulp of the plain float32 backward rounded once)."""
+    in the backward, each launch of the route ``_bwd_route`` names once
+    (``csrc/ssd_chunk_bwd_tc.cu`` in bf16, ``csrc/ssd_chunk_bwd.cu`` in
+    float32); x's gradient equals the plain backward's (float32 within
+    1e-4 of its largest, bf16 one ulp of the plain float32 backward
+    rounded once)."""
     from repro_torch.kernels import ssd
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(1, 256, 2, 64, generator=g, device=cuda,
@@ -285,13 +287,13 @@ def test_cuda_ssd_under_grad_runs_the_backward_kernel(cuda, dtype):
                         dtype=dtype) for _ in range(2))
     A_log, D = torch.zeros(2, device=cuda), torch.ones(2, device=cuda)
     dy = torch.randn(1, 256, 2, 64, generator=g, device=cuda, dtype=dtype)
-    before = [f.launches for f in ssd._BWD_KERNELS["fma"]]
+    fns = ssd._BWD_KERNELS[ssd._bwd_route(dtype, 64, 64, 128)]
+    before = [f.launches for f in fns]
     y, s = ssd_chunked(x, dt, B, C, A_log, D, chunk=128)
     assert y.requires_grad and torch.isfinite(y).all()
     y.backward(dy)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in
-            zip(ssd._BWD_KERNELS["fma"], before)] == [1, 1, 1]
+    assert [f.launches - n for f, n in zip(fns, before)] == [1] * len(fns)
     dts, da = ssd._discretize(dt, A_log)
     exp = ssd.ssd_chunked_bwd_plain(x.detach(), dts, da, B, C, D, dy,
                                     chunk=128)[0]
