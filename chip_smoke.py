@@ -272,6 +272,36 @@ raises and the script exits non-zero:
    0 of the FMA kernels past bK1; loss and grad norm finite), printing ms
    a step, tok/s and peak memory.
 
+18. drive DyPe on an H100 node: (a) the card's figures beside
+   ``core/device.py``'s H100 entries: ``memory.total``, the idle draw and
+   the draw under about 2 s of B1 at ogbn-arxiv, of cuBLAS float32 (8192
+   cubed, TF32 off) and of B2's float32 route (SWA-T's 16,384 x 1,024),
+   each the median of nvidia-smi's ``power.draw`` sampled every 100 ms,
+   the on-card copy rate and the pinned host-to-card and card-to-host
+   rates, and the draw under a pinned copy loop (no gate on power); (b)
+   ``hw_oracle``'s ``"H100"`` role against the card at DyPe's own kernel
+   specs: ``SpMM1`` on B1 and ``GeMM1`` on cuBLAS of ``gcn_workload`` for
+   the six Table-I datasets at full size (each graph drawn on the card by
+   torch's generator with ``data.table1_graph``'s law, whose numpy build
+   takes over a minute at S1), ``WinAttn1`` of ``swa_transformer_workload``
+   (4096, 512) and (16384, 1024) on B2's float32 route, (1, 8, S, 64);
+   each timed with CUDA events (mean of 10 after one) beside
+   ``hw_oracle.measure`` and the fitted ``PerfModel``; the oracle within
+   2x of the card at every spec, 66 B1 and 22 FMA launches; (c)
+   ``serve_pipeline.serve("OA", 8, system=h100_system())``, launch
+   counters set to 0 just before and read just after (16 B1 launches, 0
+   blocked-ELL; within 1e-3 of the plain GCN), the DP's predicted stage
+   times beside the card's CUDA-event times of each stage's kernels for
+   one request; (d) the same GCN through the mesh executor on an explicit
+   4-slot mesh whose every slot is ``cuda:0`` (the one card stands in for
+   four: same-card copies, no NVLink), equal to (c)'s output bit for bit
+   with 16 B1 launches; then ``TorchPipelineBackend(mode="mesh")`` on
+   that mesh with the DP's OA schedule on the paper's system: the
+   runner's group sizes the DP's ``Stage.n``, ``finishes`` equal to the
+   analytic backend's, 6 B1 launches for 3 requests, the output within
+   1e-5 of the one-card chain's. It prints a ``{"h100_system": ...}``
+   line.
+
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -451,6 +481,20 @@ ZAMBA_TRAIN_COPY = {"n_layers": 3, "batch": 1, "seq": 8192}
 # state), 16 x 4,096 tokens: train_4k's global batch of 256 x 4,096 cut by
 # batch to what one card holds; 3 steps through launch/train.py's loop
 SSD_TRAIN = {"arch": "mamba2-780m", "batch": 16, "seq": 4096, "steps": 3}
+# phase 18: DyPe on an H100 node. (a) the card's figures beside
+# core/device.py's H100 entries: nvidia-smi's power.draw sampled every 100 ms
+# over POWER_S seconds idle and under each loop (the first POWER_SKIP
+# samples dropped), copy rates over COPY_BYTES; (b) hw_oracle's "H100" role
+# against the card at DyPe's own kernel specs (SpMM1 and GeMM1 of the GCN on
+# the six Table-I datasets at full size, WinAttn1 of the two SWA-T
+# workloads), the oracle within ORACLE_FACTOR of the card's time (mean of
+# 10 launches after one)
+POWER_S = 2.0
+POWER_SKIP = 5
+COPY_BYTES = 512 << 20
+ORACLE_FACTOR = 2.0
+GCN_SETS = ("OA", "OP", "S1", "S2", "S3", "S4")
+SWA_T = ((4096, 512), (16384, 1024))
 
 
 def phase(name):
@@ -2798,6 +2842,287 @@ def zoo_phase(gen, card, counters):
     return row
 
 
+def smi(query):
+    """One nvidia-smi reading of card 0, without units."""
+    r = subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={query}",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True)
+    return r.stdout.strip()
+
+
+def power_under(fn, seconds=POWER_S):
+    """Median of nvidia-smi's power.draw (W) of card 0, sampled every 100
+    ms while ``fn`` runs in a loop for ``seconds`` (``None``: idle), the
+    first POWER_SKIP samples dropped. The sampler is stopped before this
+    returns."""
+    import statistics
+    import torch
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        end, n = time.perf_counter() + seconds, 0
+        while time.perf_counter() < end:
+            if fn is None:
+                time.sleep(0.05)
+                continue
+            fn()
+            n += 1
+            if n % 4 == 0:             # keep the queue short: the loop ends
+                torch.cuda.synchronize()   # when the card's work does
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    samples = [float(v) for v in out.split()
+               if v.replace(".", "", 1).isdigit()][POWER_SKIP:]
+    if not samples:
+        raise AssertionError(f"nvidia-smi gave no power.draw samples: {out!r}")
+    return statistics.median(samples), len(samples)
+
+
+def card_graph(ds, gen, dev):
+    """A Table-I graph at full size drawn on the card: the law of
+    ``data.table1_graph`` (uniform random edges plus self loops, duplicates
+    merged, GCN-normalised values), with torch's generator in place of
+    numpy's, whose host build takes ~0.5 us an edge (over a minute at
+    S1's 120 M edges). Returns the int32 CSR operand the kernel reads."""
+    import torch
+    from repro_torch.kernels import CsrOperand
+    V, E = ds.vertices, ds.edges
+    loops = torch.arange(V, device=dev)
+    src = torch.cat([torch.randint(V, (E,), generator=gen, device=dev),
+                     loops])
+    key = src * V
+    del src
+    key += torch.cat([torch.randint(V, (E,), generator=gen, device=dev),
+                      loops])
+    key = torch.unique(key)            # sorted: rows, then columns
+    src, dst = key // V, key % V
+    del key
+    deg = torch.bincount(src, minlength=V)
+    dinv = deg.clamp(min=1).float().rsqrt()
+    values = dinv[src] * dinv[dst]
+    indptr = torch.zeros(V + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(deg, 0)
+    return CsrOperand(indptr.int(), dst.int(), values, (V, V))
+
+
+def oracle_row(label, k, card_ms, perf, extra=None):
+    """One spec's card time beside hw_oracle.measure(k, "H100") and the
+    fitted PerfModel's time on one H100_DENSE card."""
+    from repro_torch.core import H100_DENSE, hw_oracle
+    oracle_ms = hw_oracle.measure(k, "H100") * 1e3
+    row = {"spec": label, "kind": k.kind, "card_ms": card_ms,
+           "oracle_ms": oracle_ms,
+           "fitted_ms": perf.kernel_time(k, H100_DENSE, 1) * 1e3,
+           "oracle_over_card": oracle_ms / card_ms, **(extra or {})}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def h100_system_phase(card):
+    """Phase 18: DyPe on an H100 node (see the module docstring)."""
+    import torch
+    from repro_torch.core import (DATASETS, H100_DENSE, INTERCONNECTS,
+                                  DynamicScheduler, PerfModel, gcn_workload,
+                                  h100_system, paper_system,
+                                  swa_transformer_workload)
+    from repro_torch.kernels import (spmm_blocked_ell, spmm_csr_rows, swa,
+                                     swa_attention, swa_attention_fma)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve_pipeline import serve
+    from repro_torch.runtime import (AnalyticBackend,
+                                     GroupedPipelineExecutor,
+                                     TorchPipelineBackend)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {"card": card}
+    t18 = time.perf_counter()
+
+    # (a) the card's figures beside core/device.py's
+    fig = {"memory_total_mib": float(smi("memory.total")),
+           "device_py_mem_gb": H100_DENSE.mem_gb,
+           "power_limit_w": float(smi("power.limit"))}
+    fig["idle_w"], _ = power_under(None)
+    oa = DATASETS["OA"]
+    a = card_graph(oa, gen, dev)
+    x = torch.randn((oa.vertices, oa.feature_len), generator=gen, device=dev)
+    big = torch.randn((8192, 8192), generator=gen, device=dev)
+    s_, w_ = SWA_T[-1]
+    q, k, v = (torch.randn((1, 8, s_, 64), generator=gen, device=dev)
+               for _ in range(3))
+    loops = {"spmm": lambda: a @ x, "gemm": lambda: big @ big,
+             "win_attn": lambda: swa_attention(q, k, v, window=w_,
+                                               scale=0.125)}
+    for kind, fn in loops.items():
+        fig[f"{kind}_w"], fig[f"{kind}_samples"] = power_under(fn)
+        fig[f"{kind}_above_idle_w"] = fig[f"{kind}_w"] - fig["idle_w"]
+        fig[f"device_py_dyn_{kind}_w"] = H100_DENSE.dynamic(kind)
+    src = torch.empty(COPY_BYTES // 4, device=dev)
+    dst = torch.empty_like(src)
+    host = torch.empty(COPY_BYTES // 4, pin_memory=True)
+    ms = time_ms(lambda: dst.copy_(src), 10)
+    fig["hbm_copy_gb_per_s"] = 2 * COPY_BYTES / ms / 1e6
+    ms = time_ms(lambda: dst.copy_(host, non_blocking=True), 10)
+    fig["h2d_pinned_gb_per_s"] = COPY_BYTES / ms / 1e6
+    ms = time_ms(lambda: host.copy_(dst, non_blocking=True), 10)
+    fig["d2h_pinned_gb_per_s"] = COPY_BYTES / ms / 1e6
+
+    def copies():
+        dst.copy_(host, non_blocking=True)
+        host.copy_(dst, non_blocking=True)
+    fig["transfer_w"], _ = power_under(copies)
+    fig["transfer_above_idle_w"] = fig["transfer_w"] - fig["idle_w"]
+    fig.update(device_py_static_w=H100_DENSE.static_power,
+               device_py_transfer_w=H100_DENSE.transfer_power,
+               device_py_link_bw_gb_per_s=H100_DENSE.link_bw,
+               nvlink4_gb_per_s=H100_DENSE.link_bw
+               * INTERCONNECTS["nvlink4"].scale)
+    del a, x, big, q, k, v, src, dst, host
+    torch.cuda.empty_cache()
+    print(f"[h100] figures: {json.dumps(fig)}", flush=True)
+    out["figures"] = fig
+
+    # (b) the oracle against the card at DyPe's own kernel specs
+    perf = PerfModel()
+    rows = []
+    spmm_csr_rows.launches = 0
+    for name in GCN_SETS:
+        ds = DATASETS[name]
+        t0 = time.perf_counter()
+        a = card_graph(ds, gen, dev)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        wl = gcn_workload(ds)
+        x = torch.randn((ds.vertices, ds.feature_len), generator=gen,
+                        device=dev)
+        w = torch.randn((ds.feature_len, wl[1].N), generator=gen, device=dev)
+        nnz = int(a.indices.numel())
+        rows.append(oracle_row(f"{name} {wl[0].name}", wl[0],
+                               time_ms(lambda: a @ x, 10), perf,
+                               {"graph_nnz": nnz, "graph_build_s": built}))
+        rows.append(oracle_row(f"{name} {wl[1].name}", wl[1],
+                               time_ms(lambda: x @ w, 10), perf))
+        del a, x, w
+        torch.cuda.empty_cache()
+    b1 = spmm_csr_rows.launches
+    if swa._route(torch.float32, 64) != "fma":
+        raise AssertionError("float32 D 64 is not routed to the FMA kernel")
+    n0 = swa_attention_fma.launches
+    for s_, w_ in SWA_T:
+        kspec = swa_transformer_workload(s_, w_)[1]
+        hd = kspec.d // kspec.heads
+        q, k, v = (torch.randn((1, kspec.heads, s_, hd), generator=gen,
+                               device=dev) for _ in range(3))
+        rows.append(oracle_row(
+            f"SWA-T-s{s_}-w{w_} {kspec.name}", kspec, time_ms(
+                lambda: swa_attention(q, k, v, window=w_, scale=hd ** -0.5),
+                10), perf))
+        del q, k, v
+    fma = swa_attention_fma.launches - n0
+    out["oracle"] = rows
+    out["oracle_launches"] = {"spmm_csr_rows": b1, "swa_attention_fma": fma}
+    off = [r["spec"] for r in rows
+           if not 1 / ORACLE_FACTOR <= r["oracle_over_card"] <= ORACLE_FACTOR]
+    print(f"[h100] oracle vs card at {len(rows)} specs: oracle/card "
+          f"{min(r['oracle_over_card'] for r in rows):.3f} to "
+          f"{max(r['oracle_over_card'] for r in rows):.3f} (limit "
+          f"{ORACLE_FACTOR}x); {b1} spmm_csr_rows and {fma} "
+          f"swa_attention_fma launches", flush=True)
+    if off or b1 != 11 * len(GCN_SETS) or fma != 11 * len(SWA_T):
+        raise AssertionError(f"the H100 oracle is off by more than "
+                             f"{ORACLE_FACTOR}x at {off}, or the specs did "
+                             f"not run on B1 and B2 ({b1}, {fma} launches)")
+
+    # (c) DyPe on the H100 node: serve_pipeline scheduled by h100_system
+    def counted(**kw):
+        spmm_csr_rows.launches = spmm_blocked_ell.launches = 0
+        with torch.inference_mode():
+            res = serve("OA", 8, device=dev, **kw)
+        torch.cuda.synchronize()
+        n = (spmm_csr_rows.launches, spmm_blocked_ell.launches)
+        if n != (16, 0) or tuple(res.out.shape) != (8, 170_000, 128) \
+                or not torch.isfinite(res.out).all() \
+                or not res.max_err < GCN_MAX_ERR:
+            raise AssertionError(f"serve {kw}: launches {n}, max err "
+                                 f"{res.max_err}")
+        return res
+
+    res = counted(system=h100_system())
+    ex, wl = res.executor, gcn_workload(DATASETS["OA"])
+    kernel_ms, xs = [], res.micro[0]
+    with torch.inference_mode():
+        for st, fn in enumerate(ex.stage_fns):
+            kernel_ms.append(time_ms(lambda: fn(ex.local[st], xs), 10))
+            xs = fn(ex.local[st], xs)
+    torch.cuda.synchronize()
+    stages = []
+    for s in res.plan.pipeline.stages:
+        one = sum(perf.kernel_time(wl[i], s.dev, 1) for i in
+                  range(s.i0, s.i1)) * 1e3
+        stages.append({"kernels": [wl[i].name for i in range(s.i0, s.i1)],
+                       "pool": s.dev.name, "n": s.n,
+                       "predicted_exec_ms": s.t_exec * 1e3,
+                       "predicted_one_card_ms": one,
+                       "card_ms": sum(kernel_ms[s.i0:s.i1])})
+        print(f"[h100] stage {stages[-1]['kernels']} on {s.n} "
+              f"{s.dev.name}: DP {s.t_exec * 1e3:.4f} ms (one card "
+              f"{one:.4f}), card {stages[-1]['card_ms']:.4f} ms (CUDA "
+              f"events, one request)", flush=True)
+    out["serve"] = {"schedule": res.schedule, "stages": stages,
+                    "kernel_ms": kernel_ms, "seconds": res.seconds,
+                    "inf_per_s": res.inf_per_s, "max_err": res.max_err,
+                    "launches": 16}
+
+    # (d) the mesh path on one card: four slots, every one cuda:0
+    mesh = make_mesh((4,), ("stage",), devices=[dev] * 4)
+    print(f"[mesh] a 4-slot mesh with every slot {dev} "
+          f"({torch.cuda.get_device_name(0)}): the one card stands in for "
+          f"four, so each handover is a same-card copy and no NVLink link "
+          f"is used", flush=True)
+    res_m = counted(system=h100_system(), mesh=mesh)
+    same = torch.equal(res_m.out, res.out)
+    print(f"[mesh] GCN through the mesh executor: 16 spmm_csr_rows "
+          f"launches, output equal to the single-card executor's bit for "
+          f"bit: {same}", flush=True)
+    if not same or res_m.executor.stage_devices != (dev,) * 4:
+        raise AssertionError("the one-card mesh's GCN differs from the "
+                             "single-card executor's")
+    del res, res_m, ex, xs
+    torch.cuda.empty_cache()
+    dyn = DynamicScheduler(paper_system("pcie4"), perf)
+    sched = dyn.submit(wl)
+    be = TorchPipelineBackend(mode="mesh", mesh=mesh, device=dev)
+    h = be.prepare(sched, wl, epoch=dyn.epoch)
+    sizes = tuple(s.n for s in sched.pipeline.stages)
+    n_spmm = sum(k.kind == "spmm" for k in wl)
+    spmm_csr_rows.launches = 0
+    rep = be.execute(h, 3, 0.0)
+    torch.cuda.synchronize()
+    launched = spmm_csr_rows.launches
+    ana = AnalyticBackend()
+    want = ana.execute(ana.prepare(sched, wl), 3, 0.0)
+    m3 = be._micro(3)
+    chain = TorchPipelineBackend(mode="chain", device=dev).prepare(sched, wl)
+    err = float((h.payload(m3) - chain.payload(m3)).abs().max())
+    out["mesh_backend"] = {"schedule": sched.mnemonic, "group_sizes": sizes,
+                           "launches": launched, "wall_s": rep.wall,
+                           "finishes_equal": rep.finishes == want.finishes,
+                           "vs_chain_max_abs_err": err}
+    print(f"[mesh] TorchPipelineBackend(mode='mesh') on {sched.mnemonic} "
+          f"(paper_system): {json.dumps(out['mesh_backend'])}", flush=True)
+    if not isinstance(h.payload, GroupedPipelineExecutor) \
+            or h.payload.group_sizes != sizes \
+            or rep.finishes != want.finishes or launched != 3 * n_spmm \
+            or not err <= PAYLOAD_TOL:
+        raise AssertionError(f"the mesh backend: {out['mesh_backend']}")
+    out["seconds"] = time.perf_counter() - t18
+    print(json.dumps({"h100_system": out}), flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3708,6 +4033,13 @@ def main():
     print(json.dumps({"ssd_train_phase": {
         k: st[k] for k in ("fp32", "bf16", "zamba2_bf16", "card")},
         "seconds": time.perf_counter() - t17}), flush=True)
+
+    # 18) DyPe on an H100 node: the system model and the mesh path
+    phase("18. main path: DyPe on an H100 node, h100_system, the H100 "
+          "oracle against the card, and the mesh path on one card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    h100_system_phase(card)
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",

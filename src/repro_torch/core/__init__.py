@@ -8,7 +8,8 @@ and the dynamic data-aware rescheduler.
 from .workload import (KernelSpec, Workload, GraphDataset, DATASETS,
                        gcn_workload, gin_workload, swa_transformer_workload)
 from .device import (DeviceType, HostProfile, Interconnect, SystemSpec,
-                     INTERCONNECTS, MI210, U280, UNIFORM_HOST, paper_system,
+                     H100_DENSE, H100_SPARSE, INTERCONNECTS, MI210, U280,
+                     UNIFORM_HOST, h100_system, paper_system,
                      relative_profile)
 from .perf_model import PerfModel, fit_models, LinearModel
 from .comm_model import transfer_time, effective_bw, p2p_speedup

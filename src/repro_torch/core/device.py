@@ -1,9 +1,13 @@
 """System specification: device types, counts, interconnect (Table II + §III).
 
-The paper's GPU+FPGA testbed (3x U280 + 2x MI210) ships as
-``paper_system``; schedules made on it are comparable across
-implementations of the scheduler. A system model for the H100 is not
-part of this module yet.
+Two instantiations ship:
+  * the paper's GPU+FPGA testbed (3x U280 + 2x MI210) as ``paper_system``;
+    schedules made on it are comparable across implementations of the
+    scheduler;
+  * a node of NVIDIA H100 SXM5 cards over NVLink 4 as ``h100_system``: a
+    sparse pool and a dense pool of the same card (the pools differ by
+    the kernels they run, not by silicon), priced by the ``"H100"`` role
+    of ``hw_oracle`` (the port's own kernels on the card).
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ class DeviceType:
     link_bw: float                 # GB/s per device to the interconnect
     mem_gb: float = 8.0
     perf_key: str = ""             # perf-model role ('' -> use name); a
-                                   # pool may reuse the GPU/FPGA-role models
+                                   # pool may reuse another pool's models
+                                   # (both H100 pools take the "H100" role)
 
     def dynamic(self, kind: str) -> float:
         return self.dyn_power.get(kind, self.dyn_power.get("*", 100.0))
@@ -142,10 +147,37 @@ U280 = DeviceType(
     static_power=19.5, transfer_power=30.0,
     link_bw=15.76, mem_gb=8.0)
 
+# NVIDIA H100 SXM5 80GB. Figures cited from NVIDIA's H100 Tensor Core GPU
+# data sheet ("data sheet"), or measured on one card by chip_smoke.py phase
+# 18 (a) (NVIDIA H100 80GB HBM3, power limit 700.00 W; PERF.md §5): the
+# median of nvidia-smi's power.draw over 2 s of a loop. Powers follow the
+# energy model's split (energy_model.py): static_power is the idle draw,
+# charged for the whole period; dyn_power and transfer_power are the draw
+# above idle while a kind's port kernel (B1 at ogbn-arxiv, SGEMM 8192^3
+# with TF32 off, B2's float32 route at SWA-T's 16,384 x 1,024), or a
+# pinned host-card copy loop, runs. link_bw keeps the module's convention:
+# the PCIe 4.0 x16 figure (MI210's 31.52 GB/s), which an Interconnect's
+# scale projects.
+_H100 = dict(
+    dyn_power={"spmm": 552.4, "gemm": 626.4, "win_attn": 512.4,
+               "*": 626.4},                 # measured, above idle
+    static_power=71.5,                      # measured idle draw
+    transfer_power=67.4,                    # measured, above idle
+    link_bw=31.52,                          # PCIe 4.0 x16 convention
+    mem_gb=80.0,                            # data sheet
+    perf_key="H100")
+H100_SPARSE = DeviceType(name="H100_SPARSE", **_H100)
+H100_DENSE = DeviceType(name="H100_DENSE", **_H100)
+
 INTERCONNECTS = {
     "pcie4": Interconnect("PCIe4.0", 1.0),
     "pcie5": Interconnect("PCIe5.0", 2.0),
     "cxl3": Interconnect("CXL3.0", 4.0),
+    # NVLink 4: 450 GB/s each way a GPU (data sheet: 900 GB/s
+    # bidirectional) over link_bw's PCIe 4.0 figure; point to point, no
+    # PCIe root complex (the scheduler's conflict model leaves it out).
+    # Latencies: the class defaults, not measured (one card)
+    "nvlink4": Interconnect("NVLink4", 450.0 / 31.52),
 }
 
 
@@ -200,4 +232,12 @@ def paper_system(interconnect: str = "pcie4") -> SystemSpec:
     """The paper's testbed: 3x U280 + 2x MI210."""
     return SystemSpec(dev_a=U280, n_a=3, dev_b=MI210, n_b=2,
                       interconnect=INTERCONNECTS[interconnect])
+
+
+def h100_system(n_sparse: int = 3, n_dense: int = 2) -> SystemSpec:
+    """An H100 node as two heterogeneous pools over NVLink 4: ``n_sparse``
+    cards in the irregular-kernel pool (dev_a) and ``n_dense`` in the dense
+    pool (dev_b), the counts of the paper's testbed by default."""
+    return SystemSpec(dev_a=H100_SPARSE, n_a=n_sparse, dev_b=H100_DENSE,
+                      n_b=n_dense, interconnect=INTERCONNECTS["nvlink4"])
 

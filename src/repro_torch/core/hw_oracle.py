@@ -1,8 +1,8 @@
 """Analytic hardware oracle — the stand-in for "measure the kernel on real
 hardware" (paper §V step 1).
 
-This container has no MI210/U280, so the ground-truth kernel latencies are
-produced by an analytic device simulator built from the published device
+The paper's MI210/U280 testbed is not at hand, so the ground-truth kernel
+latencies are produced by an analytic device simulator built from the published device
 constants (Table II, §III-A, Sextans [30], SWAT [6], FPGA-GEMM [31]) plus
 *non-linear* efficiency curves and deterministic quantization/jitter effects.
 The oracle plays two roles, exactly mirroring the paper's methodology:
@@ -16,6 +16,14 @@ The oracle plays two roles, exactly mirroring the paper's methodology:
 The non-linearities (occupancy/wave quantization, sparsity-dependent gather
 efficiency, small-transfer overheads) are what the linear models cannot fully
 capture — they produce the few-percent residuals that drive Table III.
+
+The ``"H100"`` role models the port's own kernels on an NVIDIA H100 SXM5
+in float32 (``KernelSpec``'s FP = 4): B1 (``csrc/spmm_csr_rows.cu``) for
+spmm, cuBLAS SGEMM with TF32 off for gemm, and B2's float32 route
+(``csrc/swa_attention.cu``) on the band only for win_attn. Its constants
+are the data sheet's; its efficiency curves are fitted to the card's
+times at DyPe's own kernel specs (``chip_smoke.py`` phase 18 (b), PERF.md
+§5). Like the other roles it is closed-form and reads no hardware.
 """
 from __future__ import annotations
 
@@ -40,6 +48,12 @@ SWAT_T_PIPE = 201               # cycles per token (w=1024 basis)
 SWAT_T_INIT = 904               # pipeline fill cycles
 FPGA_GEMM_PEAK = 0.6e12         # FLOP/s fp32 — FPGA'20 systolic GEMM [31]
 FPGA_HBM_BW = 460e9             # B/s HBM2
+
+# NVIDIA H100 SXM5 (NVIDIA's H100 Tensor Core GPU data sheet)
+H100_FP32 = 67e12               # FLOP/s, float32 outside the tensor cores
+H100_HBM_BW = 3.35e12           # B/s HBM3
+H100_L2 = 50e6                  # bytes of L2
+H100_SLAB = 128                 # B1's output columns a warp covers per pass
 
 _LAUNCH_GPU = 8e-6              # kernel launch overhead (s)
 _LAUNCH_FPGA = 25e-6            # XRT enqueue overhead (s)
@@ -144,6 +158,80 @@ def fpga_win_attn(k: KernelSpec) -> float:
 
 
 # ---------------------------------------------------------------------------
+# GPU kernels (H100, the port's own). The efficiency constants are fitted
+# to the card's CUDA-event times at the six Table-I GCN specs and the two
+# SWA-T specs (chip_smoke.py phase 18 (b); NVIDIA H100 80GB HBM3, power
+# limit 700 W; PERF.md §5): B1's two terms and the launch by least squares
+# in relative error, SGEMM's two by the smallest RMS log error, B2's as the
+# geometric mean of its two specs'. A bytes-bound SGEMM runs at the share
+# of the HBM rate that phase 18 (a)'s on-card copy reached (2,990 GB/s).
+# ---------------------------------------------------------------------------
+_H100_SPMM_BW_EFF = 0.826       # share of HBM rate B1's traffic reaches
+_H100_SPMM_ROW = 0.333e-9       # s a (row, slab): a warp's pointer chase
+_H100_GEMM_EFF = 0.72           # SGEMM's share of the float32 peak, deep K
+_H100_GEMM_K_HALF = 44.5        # K at which SGEMM reaches half of that
+_H100_GEMM_BW_EFF = 0.89        # measured copy rate over the HBM rate
+_H100_ATTN_EFF = 0.461          # B2's float32 FMA share of the peak
+_H100_ATTN_TILE = 128           # B2's key tile: keys computed past the band
+_LAUNCH_H100 = 8.1e-6           # one launch, fitted with B1's terms (s)
+
+
+def h100_spmm_bytes(k: KernelSpec) -> float:
+    """HBM bytes of B1 on a CSR of uniformly scattered columns: indptr,
+    indices and values once, each nnz's gathered 4N-byte row of X unless
+    L2 (50 MB) still holds it (a share min(1, L2 / |X|) does), every
+    touched row of X at least once, and the output once."""
+    x_bytes = 4.0 * k.K * k.N
+    hit = min(1.0, H100_L2 / max(x_bytes, 1.0))
+    gathered = max(4.0 * k.nnz * k.N * (1.0 - hit),
+                   min(x_bytes, 4.0 * k.nnz * k.N))
+    return 8.0 * k.nnz + 4.0 * (k.M + 1) + gathered + 4.0 * k.M * k.N
+
+
+def h100_spmm(k: KernelSpec) -> float:
+    """B1, ``csrc/spmm_csr_rows.cu``: one warp a row, lanes on a 128-column
+    slab as float4, N > 128 in slab passes. Bound by bytes (its FMA is
+    under 1% of the float32 peak's time), at the share of the HBM rate
+    that its scattered 512-byte gathers reach, plus a term a (row, slab)
+    for the pointer chase of a warp (indptr, indices, X) that short rows
+    cannot hide."""
+    t_mem = h100_spmm_bytes(k) / (H100_HBM_BW * _H100_SPMM_BW_EFF)
+    slabs = math.ceil(k.N / H100_SLAB)
+    t_row = _H100_SPMM_ROW * k.M * slabs
+    t = t_mem + t_row + _LAUNCH_H100
+    return t * _jitter("h100_spmm", k.M, k.N, k.nnz)
+
+
+def h100_gemm(k: KernelSpec) -> float:
+    """cuBLAS SGEMM with TF32 off, as the port runs the dense stages: 2MKN
+    over the float32 peak at an efficiency that grows with the depth K
+    (the tall-skinny products of a GCN layer), or the bytes of A, B and C
+    over the HBM rate, whichever is longer."""
+    flops = 2.0 * k.M * k.K * k.N
+    eff = _H100_GEMM_EFF * k.K / (k.K + _H100_GEMM_K_HALF)
+    t_cmp = flops / (H100_FP32 * eff)
+    bytes_t = 4.0 * (k.M * k.K + k.K * k.N + k.M * k.N)
+    t_mem = bytes_t / (H100_HBM_BW * _H100_GEMM_BW_EFF)
+    return (max(t_cmp, t_mem) + _LAUNCH_H100) \
+        * _jitter("h100_gemm", k.M, k.K, k.N)
+
+
+def h100_win_attn(k: KernelSpec) -> float:
+    """B2's float32 route, ``csrc/swa_attention.cu``, on the band only: q.k
+    and p.v, 4 d FLOPs a pair over the heads, and about five FLOPs a pair
+    a head for the exponential and the running max and sum, on the CUDA
+    cores' float32 FMA. The (query, key) pairs it computes a head: each
+    query tile of 128 rows reads the window's keys plus one tile's
+    overhang, and the first window of queries sees fewer keys (causal)."""
+    s, w = k.seq_len, min(k.w, k.seq_len)
+    pairs = s * (w + _H100_ATTN_TILE) - w * w / 2.0
+    flops = 4.0 * pairs * k.d + 5.0 * pairs * k.heads
+    t_cmp = flops / (H100_FP32 * _H100_ATTN_EFF)
+    return (t_cmp + _LAUNCH_H100) * _jitter("h100_attn", k.seq_len, k.w,
+                                            k.d)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 _TABLE = {
@@ -153,6 +241,9 @@ _TABLE = {
     ("FPGA", "spmm"): fpga_spmm,
     ("FPGA", "gemm"): fpga_gemm,
     ("FPGA", "win_attn"): fpga_win_attn,
+    ("H100", "spmm"): h100_spmm,
+    ("H100", "gemm"): h100_gemm,
+    ("H100", "win_attn"): h100_win_attn,
 }
 
 

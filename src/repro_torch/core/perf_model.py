@@ -15,6 +15,14 @@ Feature sets (Eq. 7/8/9):
   GeMM/FPGA     analytic [31] feature + MN tail
   win/FPGA      t = C * (seq_len*t_pipe + t_init) * (w/1024) / F
   win/GPU       dense-attention features (paper: SWA-on-GPU ~ dense)
+
+The H100 role (the port's own kernels, ``hw_oracle.h100_*``) is appended
+after these six, so that ``fit_models`` draws the six shared models'
+points first, from the same generator, and fits them exactly as before:
+  SpMM/H100     B1's HBM bytes, (row, slab) count, output and nnz terms
+  GeMM/H100     GeMM/GPU's features
+  win/H100      banded features (s*w*d, s*w*h, s*d, and w*w*d for the
+                causal start): B2 runs the band only
 """
 from __future__ import annotations
 
@@ -72,6 +80,18 @@ def _f_win_gpu(k: KernelSpec):
     return [s * s * d, s * s * h, s * d, 1.0]
 
 
+def _f_spmm_h100(k: KernelSpec):
+    slabs = math.ceil(k.N / hw_oracle.H100_SLAB)
+    return [hw_oracle.h100_spmm_bytes(k) * 1e-12, k.M * slabs * 1e-9,
+            k.M * k.N * 1e-12, k.nnz * 1e-9, 1e-6]
+
+
+def _f_win_h100(k: KernelSpec):
+    s, w, d, h = k.seq_len, min(k.w, k.seq_len), k.d, k.heads
+    return [s * w * d * 1e-12, s * w * h * 1e-12, s * d * 1e-9,
+            w * w * d * 1e-12, 1e-6]
+
+
 FEATURES = {
     ("GPU", "spmm"): _f_spmm_gpu,
     ("FPGA", "spmm"): _f_spmm_fpga,
@@ -79,6 +99,9 @@ FEATURES = {
     ("FPGA", "gemm"): _f_gemm_fpga,
     ("GPU", "win_attn"): _f_win_gpu,
     ("FPGA", "win_attn"): _f_win_fpga,
+    ("H100", "spmm"): _f_spmm_h100,
+    ("H100", "gemm"): _f_gemm_gpu,
+    ("H100", "win_attn"): _f_win_h100,
 }
 
 

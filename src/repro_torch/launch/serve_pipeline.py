@@ -2,13 +2,17 @@
 pipeline runtime with a DYPE-chosen schedule (the port of
 ``examples/serve_pipeline.py``).
 
-1. DYPE (``DynamicScheduler`` on the paper's 3x U280 + 2x MI210 system)
+1. DYPE (``DynamicScheduler``, by default on the paper's 3x U280 + 2x
+   MI210 system; ``system=core.h100_system()`` prices an H100 node)
    schedules the GCN workload of a Table-I dataset from its data
    characteristics.
 2. The 2-layer GCN (hidden 128) is deployed as a 4-stage pipeline
    SpMM1 | GeMM1+relu | SpMM2 | GeMM2, one CUDA stream per stage; the SpMM
    stages run the hand-written row-wise CSR kernel over the pre-loaded
-   graph (an int32 CSR operand on the device).
+   graph (an int32 CSR operand on the device). With ``mesh=`` (a
+   ``launch.mesh.Mesh`` with a 4-slot "stage" axis) stage s runs on slot
+   s, the graph and weights pre-loaded on each stage's device, as the
+   reference example places the four stages on its 4-device mesh.
 3. A stream of ``--micro`` feature matrices (V, F) is served and checked
    against a plain-path GCN (CSR gather + ``index_add_``).
 4. The data drifts (8x the edges on the same vertices) and DYPE reschedules.
@@ -49,6 +53,7 @@ class ServeResult:
     seconds: float              # host clock around one pipeline call
     schedule: str               # DYPE mnemonic before drift
     rescheduled: str            # DYPE mnemonic after drift
+    plan: object                # DYPE's ScheduleResult before drift
 
     @property
     def inf_per_s(self) -> float:
@@ -66,7 +71,7 @@ def gcn_plain(params, graph, x: torch.Tensor) -> torch.Tensor:
 
 
 def serve(dataset: str = "OA", n_micro: int = 8, *, scale: float = 1.0,
-          device=None) -> ServeResult:
+          device=None, system=None, mesh=None) -> ServeResult:
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     ds = scaled_dataset(dataset, scale)
@@ -76,26 +81,29 @@ def serve(dataset: str = "OA", n_micro: int = 8, *, scale: float = 1.0,
                          f"feature_len {F} != hidden {HIDDEN}")
 
     # 1) DYPE decides the stage partition from the data characteristics
-    dyn = DynamicScheduler(paper_system("pcie4"), PerfModel(), mode="perf")
+    dyn = DynamicScheduler(system or paper_system("pcie4"), PerfModel(),
+                           mode="perf")
     wl = gcn_workload(ds, hidden=HIDDEN)
     schedule = dyn.submit(wl)
     print(f"[dype] schedule for {wl.name}: {schedule.mnemonic} "
           f"({len(schedule.pipeline.stages)} stages)")
 
     # 2) deploy: 2-layer GCN as a 4-stage pipeline
-    #    (SpMM1 | GeMM1 | SpMM2 | GeMM2), one stream per stage
+    #    (SpMM1 | GeMM1 | SpMM2 | GeMM2), one stream per stage, on one
+    #    device or on the mesh's four slots
     graph = table1_graph(dataset, scale=scale, seed=SEED, device=dev)
     V = graph.shape[0]
-    adj = CsrOperand.from_csr(graph, device=dev)
+    slots = (dev,) * 4 if mesh is None else mesh.slots("stage")
+    adj = {d: CsrOperand.from_csr(graph, device=d) for d in set(slots)}
     print(f"[deploy] graph V={V} nnz={graph.nnz}; CSR operand "
-          f"{adj.nbytes} bytes")
+          f"{adj[slots[0]].nbytes} bytes on {len(adj)} device(s)")
     params = init_gcn_params(F, HIDDEN, generator=torch.Generator()
                              .manual_seed(SEED), device=dev)
     w1, w2 = params[0]["theta"], params[1]["theta"]
     stacked = {"w": torch.stack([w1, w1, w2, w2])}  # spmm stages ignore theirs
 
-    def spmm_stage(p, x):
-        return adj @ x
+    def spmm_stage(a):
+        return lambda p, x: a @ x
 
     def gemm_relu_stage(p, x):
         return torch.relu(x @ p["w"])
@@ -103,17 +111,20 @@ def serve(dataset: str = "OA", n_micro: int = 8, *, scale: float = 1.0,
     def gemm_stage(p, x):
         return x @ p["w"]
 
-    fns = [spmm_stage, gemm_relu_stage, spmm_stage, gemm_stage]
-    ex = PipelineExecutor(fns, stacked, (V, F), device=dev)
+    fns = [spmm_stage(adj[slots[0]]), gemm_relu_stage,
+           spmm_stage(adj[slots[2]]), gemm_stage]
+    ex = PipelineExecutor(fns, stacked, (V, F), device=dev, mesh=mesh)
 
     # 3) serve a stream of batched requests
     gen = torch.Generator(device=dev).manual_seed(SEED)
     micro = torch.randn((n_micro, V, F), generator=gen, device=dev)
     synchronize(dev)
     t0 = time.perf_counter()
-    out = ex(micro)
-    synchronize(dev)
+    out = ex(micro.to(ex.device))
+    for d in set(slots):
+        synchronize(d)
     dt = time.perf_counter() - t0
+    out = out.to(dev)
     exp = torch.stack([gcn_plain(params, graph, micro[i])
                        for i in range(n_micro)])
     err = float((out - exp).abs().max())
@@ -131,7 +142,7 @@ def serve(dataset: str = "OA", n_micro: int = 8, *, scale: float = 1.0,
     print(f"[dype] drift: {wl.name} -> {wl2.name}: "
           f"{schedule.mnemonic} -> {s2.mnemonic}")
     return ServeResult(out, micro, params, graph, ex, err, dt,
-                       schedule.mnemonic, s2.mnemonic)
+                       schedule.mnemonic, s2.mnemonic, schedule)
 
 
 def main(argv=None):

@@ -31,8 +31,9 @@ Three implementations ship:
     to inline: request i of a batch finishes at t0 + fill + i*period.
   * ``TorchPipelineBackend`` — runs the schedule's stages as a chain of
     proxy stage functions on one device (the card, or the CPU when the
-    caller asks for it) and actually computes the microbatches; the spmm
-    stages multiply by a ring graph through the row-wise CSR SpMM kernel.
+    caller asks for it), or over the slots of a mesh, one stage group a
+    slot, and actually computes the microbatches; the spmm stages
+    multiply by a ring graph through the row-wise CSR SpMM kernel.
     Completion *times* still come from the schedule model so the
     simulated clock stays consistent, which is also what makes analytic
     vs torch completion ordering bit-identical (the parity tests).
@@ -60,6 +61,8 @@ from ..core.scheduler import ScheduleResult
 from ..core.workload import Workload
 from ..device import resolve_device
 from ..kernels.ops import CsrOperand
+from ..launch.mesh import make_mesh
+from .pipeline_exec import GroupedPipelineExecutor
 
 
 class WorkerLost(Exception):
@@ -259,7 +262,7 @@ class AnalyticBackend(ExecutionBackend):
 
 
 # ---------------------------------------------------------------------------
-# real execution: the stage chain on one device
+# real execution: the stage chain on one device, or over a mesh
 # ---------------------------------------------------------------------------
 def ring_operand(act_batch: int, max_micro: int, *, device=None) -> CsrOperand:
     """The spmm proxy's graph: a ring over the ``act_batch`` rows of each
@@ -284,6 +287,28 @@ def ring_rows(ring: CsrOperand, n: int) -> CsrOperand:
                       ring.values[:n], (n, n))
 
 
+def proxy_stage(kinds, w: torch.Tensor, ring: CsrOperand,
+                x: torch.Tensor) -> torch.Tensor:
+    """One schedule stage's proxy of its kernel group on ``x`` of shape
+    (..., act_batch, act_dim): spmm -> neighbor aggregation (a row shift
+    through the SpMM kernel, one launch over every row of ``x``) + feature
+    mix, win_attn -> windowed mix along the features + matmul, gemm ->
+    matmul, each followed by tanh. ``ring`` must have at least as many
+    rows as ``x``."""
+    for kind in kinds:
+        if kind == "spmm":
+            flat = x.reshape(-1, x.shape[-1])
+            x = (flat @ w + ring_rows(ring, flat.shape[0]) @ flat) \
+                .reshape(x.shape)
+        elif kind == "win_attn":
+            # windowed mixing proxy along the feature axis
+            x = x @ w + 0.5 * torch.roll(x, 1, dims=-1)
+        else:                      # gemm
+            x = x @ w
+        x = torch.tanh(x)          # bounded through deep chains
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class StageChain:
     """A prepared payload: the schedule's stages as a chain of proxy stage
@@ -295,22 +320,7 @@ class StageChain:
     ring: CsrOperand               # ring_operand(act_batch, max_micro)
 
     def stage(self, s: int, x: torch.Tensor) -> torch.Tensor:
-        w = self.ws[s]
-        for kind in self.kinds[s]:
-            if kind == "spmm":
-                # neighbor aggregation proxy: row shift + feature mix, the
-                # shift one launch of the SpMM kernel over all microbatches
-                m, b, f = x.shape
-                flat = x.reshape(m * b, f)
-                x = (flat @ w + ring_rows(self.ring, m * b) @ flat) \
-                    .reshape(m, b, f)
-            elif kind == "win_attn":
-                # windowed mixing proxy along the feature axis
-                x = x @ w + 0.5 * torch.roll(x, 1, dims=-1)
-            else:                      # gemm
-                x = x @ w
-            x = torch.tanh(x)          # bounded through deep chains
-        return x
+        return proxy_stage(self.kinds[s], self.ws[s], self.ring, x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         for s in range(len(self.kinds)):
@@ -318,8 +328,16 @@ class StageChain:
         return x
 
 
+def _mesh_stage(kinds, ring_shape):
+    def fn(p, x):
+        ring = CsrOperand(p["indptr"], p["indices"], p["values"], ring_shape)
+        return proxy_stage(kinds, p["w"], ring, x)
+    return fn
+
+
 class TorchPipelineBackend(ExecutionBackend):
-    """Runs batches through the schedule's stages on one device.
+    """Runs batches through the schedule's stages on one device, or over
+    the slots of a mesh.
 
     Each schedule stage becomes one stage function applying a proxy of its
     kernel group (spmm -> neighbor-aggregate + matmul, gemm -> matmul,
@@ -332,9 +350,16 @@ class TorchPipelineBackend(ExecutionBackend):
 
     ``mode``:
       * "chain" — run the stage chain in order on the one device
-      * "auto"  — the same (one device is all the port drives)
-      * "mesh"  — one device per DP stage slot, ``sum(group_sizes)`` GPUs:
-        not ported (ROADMAP A.10), raises ``NotImplementedError``
+      * "mesh"  — one slot per DP stage slot, ``sum(group_sizes)`` of them:
+        a ``GroupedPipelineExecutor`` with the DP's ``Stage.n`` as group
+        sizes, each stage on its group head's card, the activation copied
+        card to card; the slots are the first cards, or the first slots
+        of ``mesh=`` (a ``launch.mesh.Mesh``, whose slots may repeat a
+        device). Without ``mesh=``, ``prepare`` raises when fewer cards
+        are visible than the schedule has slots
+      * "auto"  — the reference's rule: "mesh" when the device is a card,
+        the schedule has more than one stage and ``sum(group_sizes)``
+        cards are visible, else "chain"
 
     ``device=None`` means the card and raises without one; the CPU runs
     only when the caller passes ``device="cpu"``.
@@ -351,15 +376,12 @@ class TorchPipelineBackend(ExecutionBackend):
     measured_sim_clock = False
 
     def __init__(self, *, act_batch: int = 8, act_dim: int = 16,
-                 max_micro: int = 8, mode: str = "auto", device=None):
+                 max_micro: int = 8, mode: str = "auto", device=None,
+                 mesh=None):
         if mode not in ("auto", "chain", "mesh"):
             raise ValueError(f"mode {mode!r}: choose auto, chain or mesh")
-        if mode == "mesh":
-            raise NotImplementedError(
-                "mode='mesh' runs each DP stage slot on its own GPU "
-                "(sum(group_sizes) cards); the port's multi-device path is "
-                "ROADMAP A.10")
         self.device = resolve_device(device)
+        self.mesh = mesh
         torch.backends.cuda.matmul.allow_tf32 = False
         self.act_batch = act_batch
         self.act_dim = act_dim
@@ -386,12 +408,39 @@ class TorchPipelineBackend(ExecutionBackend):
                 (0.8 + 0.02 * s) * eye
                 + 0.01 * torch.roll(eye, s + 1, dims=1)
                 for s in range(len(stages))])
-            payload = StageChain(stage_kinds, ws,
-                                 ring_operand(self.act_batch, self.max_micro,
-                                              device=self.device))
+            n_dev = sum(group_sizes)
+            use_mesh = self.mode == "mesh" or (
+                self.mode == "auto" and self.device.type == "cuda"
+                and len(stages) > 1 and torch.cuda.device_count() >= n_dev)
+            if use_mesh:
+                payload = self._mesh_payload(stage_kinds, group_sizes, ws)
+            else:
+                payload = StageChain(stage_kinds, ws, ring_operand(
+                    self.act_batch, self.max_micro, device=self.device))
             self._payload_cache[cache_key] = payload
         return PipelineHandle(schedule, workload, epoch=epoch,
                               backend=self.name, payload=payload)
+
+    def _mesh_payload(self, stage_kinds, group_sizes,
+                      ws) -> GroupedPipelineExecutor:
+        """A prepared mesh payload: the proxy stages over a
+        ``GroupedPipelineExecutor`` whose group sizes are the DP's
+        ``Stage.n``, on ``sum(group_sizes)`` slots (the first cards, or the
+        first slots of the backend's ``mesh``), one (act_batch, act_dim)
+        microbatch a round; each stage's weight and its ring graph
+        (``ring_operand(act_batch, 1)``) live on its group head's
+        device."""
+        n_dev, n = sum(group_sizes), len(stage_kinds)
+        slots = (None if self.mesh is None
+                 else list(self.mesh.devices.flat))
+        mesh = make_mesh((n_dev,), ("stage",), devices=slots)
+        ring = ring_operand(self.act_batch, 1, device=self.device)
+        params = {"w": ws, **{k: getattr(ring, k).expand(n, -1) for k in
+                              ("indptr", "indices", "values")}}
+        fns = [_mesh_stage(kinds, ring.shape) for kinds in stage_kinds]
+        return GroupedPipelineExecutor(
+            fns, params, (self.act_batch, self.act_dim), group_sizes,
+            mesh=mesh, axis="stage")
 
     def _micro(self, n_micro: int) -> torch.Tensor:
         """Deterministic microbatch content (replayable, seedless)."""
@@ -416,15 +465,35 @@ class TorchPipelineBackend(ExecutionBackend):
         interval between its two events, which holds device time only (the
         host time between submit and reap is not in it). On the CPU the
         stages run as they are enqueued, each timed by ``perf_counter``.
-        ``wall`` is ``perf_counter`` from just before the first stage is
-        enqueued to the moment the last one is known done."""
+        In mesh mode the stages overlap across the rounds, so, as the
+        reference does, the measured wall is shared over the stages by the
+        schedule's stage weights: the total is measured, the split is
+        modeled. ``wall`` is ``perf_counter`` from just before the first
+        stage is enqueued to the moment the last one is known done."""
         n = batch_size(batch)
         base = _analytic_report(handle.schedule, n, t0)
         chain = handle.payload
         micro = self._micro(n)             # host-side input build: not timed
         w0 = time.perf_counter()
         x = micro
-        if self.device.type == "cuda":
+        if isinstance(chain, GroupedPipelineExecutor):
+            dev = chain.device
+            chain(micro.to(dev))           # async on the card
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+
+            def resolve():
+                if done is not None:
+                    done.synchronize()
+                wall = time.perf_counter() - w0
+                est = base.stage_times
+                tot = sum(est) or 1.0
+                return dataclasses.replace(
+                    base, wall=wall,
+                    measured_stage_times=tuple(wall * e / tot for e in est))
+        elif self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
             marks = [torch.cuda.Event(enable_timing=True)]
             marks[0].record(stream)

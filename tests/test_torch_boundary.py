@@ -70,6 +70,7 @@ def _entry_points():
     from repro_torch.launch.serve_pipeline import main, serve
     from repro_torch.data import TokenStream
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
     from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                           make_train_step)
     from repro_torch.models import (init_params, lm_params_from_numpy,
@@ -112,6 +113,8 @@ def _entry_points():
         "GroupedPipelineExecutor": lambda: GroupedPipelineExecutor(
             [lambda p, x: x], {}, (2, 2), (1,)),
         "serve": lambda: serve("OA", 1, scale=0.006024),
+        "make_mesh": lambda: make_mesh((2,), ("stage",)),
+        "make_production_mesh": lambda: make_production_mesh(),
         "serve_pipeline.main": lambda: main(["--scale", "0.006024"]),
         "init_params": lambda: init_params(model_decls(lm)),
         "lm_params_from_numpy": lambda: lm_params_from_numpy(

@@ -57,6 +57,8 @@ def test_drift_reschedules_like_reference(models):
 
 
 def test_port_keeps_no_tpu_pools():
+    """The port drops the TPU pools and adds the H100 node's NVLink 4."""
     assert not hasattr(port, "tpu_system")
     assert "ici" not in port.INTERCONNECTS
-    assert set(ref.INTERCONNECTS) - {"ici"} == set(port.INTERCONNECTS)
+    assert set(ref.INTERCONNECTS) - {"ici"} | {"nvlink4"} == \
+        set(port.INTERCONNECTS)
