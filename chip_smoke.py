@@ -302,6 +302,20 @@ raises and the script exits non-zero:
    1e-5 of the one-card chain's. It prints a ``{"h100_system": ...}``
    line.
 
+19. drive the training path of the LM zoo on a (data, model) mesh
+   (``launch/dist.py``: one process a slot, NCCL) on the one card: (a) a
+   world of one process on a (1, 1) mesh runs ``lm_loss`` and its
+   backward through the mesh code path (each layer's leaves gathered
+   inside its checkpoint, the loss and count summed over data, the specs
+   of the reference) on qwen3-8b's 2-layer float32 copy at full width,
+   2 x 1,024 tokens: the loss and every gradient equal the one-card
+   path's bit for bit (at size 1 every gather and sum is an identity and
+   the vocab-parallel loss is off); (b) from the specs alone, on the meta
+   device, the bytes of parameters, gradients and AdamW state a card
+   holds for every arch of ``configs.ARCHS`` at full size on the
+   production meshes (16, 16) and (2, 16, 16), each marked whether its
+   parameters and state fit 80 GB. It prints a ``{"lm_mesh": ...}`` line.
+
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -2922,6 +2936,99 @@ def oracle_row(label, k, card_ms, perf, extra=None):
     return row
 
 
+def lm_mesh_rank(pm, arch, layers, batch, seq):
+    """Phase 19 (a), in the one rank of a (1, 1) NCCL world: ``lm_loss``
+    and every gradient through the mesh path and through the one-card path
+    on the same seeded float32 copy, compared bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import dist
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params, tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = pm.device
+    cfg = get_config(arch).replace(n_layers=layers, param_dtype="float32",
+                                   compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    full = init_params(lm.model_decls(cfg), gen, dev, cfg.pdtype)
+    gen.manual_seed(19)
+    shards = dist.shard_init(lm.model_decls(cfg, pm.ax), gen, dev,
+                             cfg.pdtype, pm.ax, pm.coords)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in
+         synthetic_batch(0, batch, seq, cfg.vocab_size).items()}
+    out = {"arch": arch, "layers": layers, "tokens": [batch, seq],
+           "mesh": dict(pm.mesh.shape), "backend": torch.distributed
+           .get_backend(), "params_equal": all(
+               torch.equal(a, c) for (_, a), (_, c) in
+               zip(tree_leaves(full), tree_leaves(shards)))}
+    runs = {}
+    for name, params, kw in (("one_card", full, {}),
+                             ("mesh", shards, {"mesh": pm})):
+        for _, t in tree_leaves(params):
+            t.requires_grad_(True)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = lm.lm_loss(params, b, cfg, **kw)
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        runs[name] = (loss.detach(), {p: t.grad for p, t in
+                                      tree_leaves(params)})
+        out[f"{name}_fwd_bwd_s"] = time.perf_counter() - t0
+    (l1, g1), (lm_, gm) = runs["one_card"], runs["mesh"]
+    out["loss"] = float(l1)
+    out["loss_equal"] = torch.equal(l1, lm_)
+    out["grads_equal"] = {p: torch.equal(g1[p], gm[p]) for p in g1}
+    out["max_abs_grad_diff"] = max(float((g1[p] - gm[p]).abs().max())
+                                   for p in g1)
+    return out
+
+
+def lm_mesh_phase(card):
+    """Phase 19: the LM zoo's training path on a mesh (see the module
+    docstring)."""
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import dist
+    from repro_torch.models import lm
+    from repro_torch.models.common import AxisEnv
+    from repro_torch.optim import AdamWConfig, opt_state_decls
+    t19 = time.perf_counter()
+    row = {"card": card}
+    # (a) a one-process NCCL world on a (1, 1) mesh against one card
+    a = dist.launch(lm_mesh_rank, (1, 1), ("data", "model"), "qwen3-8b", 2,
+                    2, 1024)[0]
+    row["one_rank_mesh"] = {k: v for k, v in a.items() if k != "grads_equal"}
+    row["one_rank_mesh"]["leaves_equal"] = sum(a["grads_equal"].values())
+    row["one_rank_mesh"]["leaves"] = len(a["grads_equal"])
+    if a["backend"] != "nccl" or not (a["params_equal"] and a["loss_equal"]
+                                      and all(a["grads_equal"].values())):
+        raise AssertionError(f"phase 19 (a): the (1, 1) mesh path is not "
+                             f"the one-card path bit for bit: {a}")
+    # (b) what a card holds at the production meshes, from the specs
+    gb = 1e9
+    row["per_card_gb"] = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for mesh, data, sizes in (
+                ("16x16", ("data",), {"data": 16, "model": 16}),
+                ("2x16x16", ("pod", "data"),
+                 {"pod": 2, "data": 16, "model": 16})):
+            ax = AxisEnv(data=data, model="model", sizes=sizes)
+            decls = lm.model_decls(cfg, ax)
+            p = dist.per_card_bytes(decls, ax, cfg.pdtype)
+            st = dist.per_card_bytes(opt_state_decls(
+                decls, AdamWConfig(state_dtype=cfg.opt_state_dtype)), ax,
+                torch.float32)
+            row["per_card_gb"][f"{arch}@{mesh}"] = {
+                "params": p / gb, "grads": p / gb, "opt_state": st / gb,
+                "opt_state_dtype": cfg.opt_state_dtype,
+                "params_and_state_fit_80gb": p + st <= 80 * gb}
+    row["seconds"] = time.perf_counter() - t19
+    print(json.dumps({"lm_mesh": row}), flush=True)
+    return row
+
+
 def h100_system_phase(card):
     """Phase 18: DyPe on an H100 node (see the module docstring)."""
     import torch
@@ -4040,6 +4147,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     h100_system_phase(card)
+
+    # 19) the LM zoo's training path on a mesh, on the one card
+    phase("19. main path: training the LM zoo on a (data, model) mesh "
+          "(launch/dist.py, NCCL): a (1, 1) world against one card, and "
+          "each arch's bytes a card at the production meshes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh_phase(card)
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",

@@ -7,7 +7,8 @@ import torch
 from ..configs import LONG_VIA_SWA, ShapeSpec
 from ..device import resolve_device
 from ..models import lm
-from ..models.common import ModelConfig, tree_leaves, tree_map
+from ..models.common import (CPU_AXES, ModelConfig, param_specs,
+                             tree_leaves, tree_map)
 from ..models.layers import logits_from_hidden
 from ..optim import AdamWConfig, adamw_update, cosine_schedule
 
@@ -26,7 +27,7 @@ def _grad_of(t):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
-                    device=None):
+                    device=None, *, ax=None, mesh=None):
     """A step ``(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``: the gradient of ``lm.lm_loss`` over
     ``cfg.grad_accum`` microbatches (the batch's leading dim split evenly;
@@ -36,9 +37,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     leaf tensors, on ``device``) and the optimizer state are updated in
     place and returned; each leaf's ``.grad`` is cleared after the update.
     The batch's tensors (tokens, labels and the family's extras, as
-    ``lm.lm_loss`` reads them) are moved to ``device``."""
+    ``lm.lm_loss`` reads them) are moved to ``device``.
+
+    With ``mesh`` (a ``launch/dist.ProcessMesh``; ``device`` is its
+    card; ``ax``, the reference's argument, may only name ``mesh.ax``) the
+    parameters and the state are this rank's shards (``dist.shard_init``,
+    then ``adamw_init(..., specs=, mesh=)``), the batch is the global one
+    (each microbatch is cut over the data axes inside ``lm_loss``), the
+    gradients land on the shards, the clip reads the whole tree's norm,
+    and the loss is the global mean."""
+    lm.check_axes(ax, mesh)
+    if mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
-    lm.model_decls(cfg)                      # raises for an unknown family
+    # raises for an unknown family
+    specs = param_specs(lm.model_decls(
+        cfg, CPU_AXES if mesh is None else mesh.ax))
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
     A = max(cfg.grad_accum, 1)
 
@@ -49,7 +63,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             t.requires_grad_(True)
             t.grad = None
         if A == 1:
-            loss = lm.lm_loss(params, batch, cfg)
+            loss = lm.lm_loss(params, batch, cfg, mesh=mesh)
             loss.backward()
             grads = tree_map(_grad_of, params)
         else:
@@ -60,7 +74,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             for mb in range(A):
                 part = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[mb]
                         for k, v in batch.items()}
-                l = lm.lm_loss(params, part, cfg)
+                l = lm.lm_loss(params, part, cfg, mesh=mesh)
                 l.backward()
                 for (_, a), t in zip(tree_leaves(acc), leaves):
                     a.add_(_grad_of(t).to(a.dtype))
@@ -71,7 +85,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
         lr_scale = cosine_schedule(opt_state["step"])
         with torch.no_grad():
             params, opt_state, gn = adamw_update(params, grads, opt_state,
-                                                 opt_cfg, lr_scale)
+                                                 opt_cfg, lr_scale,
+                                                 specs=specs, mesh=mesh)
         for t in leaves:
             t.grad = None
             t.requires_grad_(False)

@@ -4,7 +4,12 @@
       --steps 30 [--ckpt-dir /tmp/ckpt] [--device cpu]
 
 ``--smoke`` runs the reduced same-family config; without it the full config
-runs, on one card with no mesh (multi-device training is ROADMAP.md A.10).
+runs, on one card, or with ``--mesh DxM`` on a (data, model) mesh of D x M
+cards: one process a card (``launch/dist.py``), each holding its shards of
+the parameters and the AdamW state in the reference's layout, the batch
+cut over data. ``--mesh`` with ``--device cpu`` runs the same on CPU
+processes over gloo. A sharded checkpoint is not written yet, so
+``--mesh`` with ``--ckpt-dir`` raises.
 ``--shape`` routes the config through ``effective_config`` as the
 reference's ``steps.step_fn`` routes a shape: ``--shape long_500k`` trains
 the dense archs with sliding-window attention, window 4096, whose band
@@ -23,6 +28,11 @@ kernels; zamba2-7b the same way):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
         --steps 3 --batch 16 --seq 4096
+
+qwen3-8b, which one card cannot hold with its AdamW state, on four cards:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
+        --mesh 2x2 --steps 3 --batch 8 --seq 4096
 """
 from __future__ import annotations
 
@@ -47,13 +57,18 @@ from ..kernels import (ssd_chunk_bwd_dstate, ssd_chunk_bwd_grads,
                        swa_attention_bwd_wgmma_dq,
                        swa_attention_bwd_wgmma_stats, swa_attention_fma,
                        swa_attention_wgmma)
-from ..models.common import ModelConfig, init_params, param_count
+from ..models.common import (ModelConfig, init_params, param_count,
+                             param_specs)
 from ..models.lm import model_decls
 from ..optim import AdamWConfig, adamw_init
+from .dist import launch, shard_init
 from .steps import effective_config, make_train_step
 
 SEED = 0              # weights (torch.Generator on the device)
 LOG_EVERY = 5         # a [train] line every LOG_EVERY steps and the last
+CKPT_ON_A_MESH = ("--ckpt-dir with --mesh: the checkpoint would hold one "
+                  "rank's shards only; a sharded checkpoint is not written "
+                  "yet")
 # the kernel entries a training step can launch, each counting its launches
 COUNTERS = (swa_attention, swa_attention_wgmma, swa_attention_fma,
             swa_attention_bwd_wgmma_stats, swa_attention_bwd_wgmma_dkdv,
@@ -80,17 +95,26 @@ class TrainResult:
 
 def train(cfg: ModelConfig, *, steps: int = 30, batch: int = 8,
           seq: int = 128, ckpt_dir=None, ckpt_every: int = 10,
-          device=None) -> TrainResult:
+          device=None, mesh=None) -> TrainResult:
     """Train ``cfg`` from a seeded init (or the newest committed checkpoint
     in ``ckpt_dir``) up to ``steps``; a checkpoint every ``ckpt_every``
-    steps after the first."""
-    dev = resolve_device(device)
-    decls = model_decls(cfg)
+    steps after the first. With ``mesh`` (a ``launch/dist.ProcessMesh``,
+    every rank calling) the same seeded draws are cut to this rank's
+    shards one leaf at a time, and only rank 0 prints."""
+    if mesh is not None and ckpt_dir:
+        raise ValueError(CKPT_ON_A_MESH)
+    dev = resolve_device(device if mesh is None else mesh.device)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_params(decls, gen, dev, cfg.pdtype)
     ocfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
-    opt = adamw_init(params, ocfg)
-    step_fn = make_train_step(cfg, ocfg, device=dev)
+    if mesh is None:
+        params = init_params(model_decls(cfg), gen, dev, cfg.pdtype)
+        opt = adamw_init(params, ocfg)
+    else:
+        decls = model_decls(cfg, mesh.ax)
+        params = shard_init(decls, gen, dev, cfg.pdtype, mesh.ax, mesh.coords)
+        opt = adamw_init(params, ocfg, specs=param_specs(decls), mesh=mesh)
+    step_fn = make_train_step(cfg, ocfg, device=dev, mesh=mesh)
+    log = mesh is None or mesh.rank == 0
 
     start = 0
     ck = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -125,7 +149,7 @@ def train(cfg: ModelConfig, *, steps: int = 30, batch: int = 8,
             res.seconds[step] = time.perf_counter() - ts
             res.launches[step] = {f.__name__: f.launches - n for f, n in
                                   zip(COUNTERS, before) if f.launches != n}
-            if step % LOG_EVERY == 0 or step == steps - 1:
+            if log and (step % LOG_EVERY == 0 or step == steps - 1):
                 print(f"[train] step {step:5d} loss {res.losses[step]:.4f} "
                       f"gnorm {res.grad_norms[step]:.3f} "
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -137,6 +161,28 @@ def train(cfg: ModelConfig, *, steps: int = 30, batch: int = 8,
             ck.wait()
     res.params, res.opt = params, opt
     return res
+
+
+def _summary(res: TrainResult, dev) -> dict:
+    """What ``main`` prints of a run, as plain data (a rank's return)."""
+    return {"seconds": res.seconds, "launches": res.launches,
+            "tokens_per_step": res.tokens_per_step,
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else None)}
+
+
+def _train_rank(pm, cfg, kw):
+    """One rank of ``main --mesh``."""
+    return _summary(train(cfg, mesh=pm, **kw), pm.device)
+
+
+def _mesh_shape(text: str) -> tuple:
+    try:
+        d, m = (int(n) for n in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh {text!r}: expected DxM, e.g. 2x2") from None
+    return d, m
 
 
 def main(argv=None):
@@ -153,22 +199,40 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises when there is no card)")
+    ap.add_argument("--mesh", type=_mesh_shape, default=None,
+                    help="DxM: a (data, model) mesh, one process a slot "
+                         "(a card, or a CPU process with --device cpu)")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.shape:
         cfg = effective_config(cfg, SHAPES[args.shape])
-    print(f"[train] {cfg.name}{' (smoke)' if args.smoke else ''}: "
-          f"{param_count(model_decls(cfg)) / 1e6:.1f}M params on {dev}"
-          f"{f', attention {cfg.attention} window {cfg.window}' if cfg.attention == 'swa' else ''}")
-    res = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                device=dev)
-    if res.seconds:
-        last = max(res.seconds)
-        print(f"[train] last step {res.seconds[last] * 1e3:.1f} ms "
-              f"({res.tokens_per_step / res.seconds[last]:.1f} tok/s); "
-              f"kernel launches {res.launches[last]}")
+    kw = dict(steps=args.steps, batch=args.batch, seq=args.seq,
+              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    name = f"{cfg.name}{' (smoke)' if args.smoke else ''}"
+    swa = (f", attention {cfg.attention} window {cfg.window}"
+           if cfg.attention == "swa" else "")
+    if args.mesh is not None:
+        if args.ckpt_dir:              # before any rank is spawned
+            raise ValueError(CKPT_ON_A_MESH)
+        where = f"{args.mesh[0] * args.mesh[1]} devices"
+    else:
+        dev = resolve_device(args.device)
+        where = str(dev)
+    print(f"[train] {name}: {param_count(model_decls(cfg)) / 1e6:.1f}M "
+          f"params on {where}{swa}", flush=True)
+    if args.mesh is not None:
+        ranks = launch(_train_rank, args.mesh, ("data", "model"), cfg, kw,
+                       device=args.device)
+    else:
+        ranks = [_summary(train(cfg, device=dev, **kw), dev)]
+    res = ranks[0]
+    if res["seconds"]:
+        last = max(res["seconds"])
+        peaks = [r["peak_gib"] for r in ranks]
+        print(f"[train] last step {res['seconds'][last] * 1e3:.1f} ms "
+              f"({res['tokens_per_step'] / res['seconds'][last]:.1f} "
+              f"tok/s); kernel launches {res['launches'][last]}"
+              + (f"; peak GiB a card {peaks}" if peaks[0] else ""))
     print("[train] done")
 
 

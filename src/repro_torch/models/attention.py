@@ -23,7 +23,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.ops import swa_attention_op
-from .common import ModelConfig, ParamDecl
+from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -32,14 +32,19 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 # Declarations
 # ---------------------------------------------------------------------------
-def attn_decls(cfg: ModelConfig, stack: int | None = None):
+def attn_decls(cfg: ModelConfig, stack: int | None = None, *,
+               ax: AxisEnv = CPU_AXES):
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     st = () if stack is None else (stack,)
+    stp = () if stack is None else (None,)
+    f = fsdp_spec(cfg, ax, d)
+    mq = ax.shard_if(qd, ax.model)
+    mkv = ax.shard_if(kvd, ax.model)
     decls = {
-        "wq": ParamDecl(st + (d, qd), fan_in=d),
-        "wk": ParamDecl(st + (d, kvd), fan_in=d),
-        "wv": ParamDecl(st + (d, kvd), fan_in=d),
-        "wo": ParamDecl(st + (qd, d), fan_in=qd),
+        "wq": ParamDecl(st + (d, qd), (*stp, f, mq), fan_in=d),
+        "wk": ParamDecl(st + (d, kvd), (*stp, f, mkv), fan_in=d),
+        "wv": ParamDecl(st + (d, kvd), (*stp, f, mkv), fan_in=d),
+        "wo": ParamDecl(st + (qd, d), (*stp, mq, f), fan_in=qd),
     }
     if cfg.qk_norm:
         decls["q_norm"] = ParamDecl(st + (cfg.head_dim,), init="ones")

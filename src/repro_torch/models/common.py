@@ -1,10 +1,14 @@
-"""Common model-building machinery: parameter declarations and configs.
+"""Common model-building machinery: parameter declarations, sharding
+specs, the axis environment and configs.
 
 Parameters are declared once as a nested dict of :class:`ParamDecl`
-(shape + init rule); ``init_params`` materialises them and ``param_count``
-counts them, so the two never drift apart. Sharding specs and the axis
-environment of the JAX package wait for multi-device work: the port runs
-on one card.
+(shape + sharding spec + init rule); ``init_params`` materialises them,
+``param_specs`` gives their specs and ``param_count`` counts them, so the
+three never drift apart. A spec is a plain tuple, one entry a dim (fewer
+entries leave the trailing dims whole): ``None``, a mesh axis name, or a
+tuple of names (the data axes ``("pod", "data")``) — the JAX package's
+``PartitionSpec``, with no jax in it. ``launch/dist.py`` cuts and gathers
+the leaves by these specs.
 """
 from __future__ import annotations
 
@@ -19,11 +23,59 @@ from ..device import resolve_device
 
 
 # ---------------------------------------------------------------------------
+# Axis environment
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AxisEnv:
+    """Logical mesh axes. ``data`` may span several physical axes
+    (pod, data)."""
+    data: tuple[str, ...] = ("data",)
+    model: str = "model"
+    sizes: dict | None = None  # axis name -> size, for divisibility checks
+
+    @property
+    def dp(self):
+        return self.data if len(self.data) > 1 else self.data[0]
+
+    def size(self, name) -> int:
+        if self.sizes is None:
+            return 1
+        if isinstance(name, tuple):
+            out = 1
+            for n in name:
+                out *= self.sizes.get(n, 1)
+            return out
+        return self.sizes.get(name, 1)
+
+    def shard_if(self, dim: int, name):
+        """Return axis name if ``dim`` divides evenly over it, else None."""
+        if name is None:
+            return None
+        s = self.size(name)
+        return name if (s > 0 and dim % s == 0) else None
+
+
+def axis_env_for_mesh(mesh) -> AxisEnv:
+    """The axis environment of a ``launch.mesh.Mesh``: ``data`` is every
+    axis but ``model``."""
+    names = mesh.axis_names
+    sizes = dict(zip(names, mesh.devices.shape))
+    data = tuple(n for n in names if n != "model")
+    return AxisEnv(data=data, model="model", sizes=sizes)
+
+
+# Single-device env (smoke tests / CPU examples).
+CPU_AXES = AxisEnv(data=("data",), model="model",
+                   sizes={"data": 1, "model": 1})
+
+
+# ---------------------------------------------------------------------------
 # Param declarations
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: tuple
+    spec: tuple = ()      # sharding spec: one entry a leading dim
     init: str = "normal"  # 'normal' | 'zeros' | 'ones'
     # fan-in for scaled-normal init; default = second-to-last dim (or last).
     fan_in: int | None = None
@@ -38,6 +90,15 @@ def tree_leaves(tree, prefix: str = ""):
             yield from tree_leaves(tree[k], f"{prefix}['{k}']")
     else:
         yield prefix, tree
+
+
+def tree_from_leaves(like, flat: dict, prefix: str = ""):
+    """``like``'s dict structure with the leaves of ``flat`` (path -> leaf,
+    the paths of ``tree_leaves``): the way back of ``dict(tree_leaves)``."""
+    if isinstance(like, dict):
+        return {k: tree_from_leaves(v, flat, f"{prefix}['{k}']")
+                for k, v in like.items()}
+    return flat[prefix]
 
 
 def tree_map(fn, tree, *rest):
@@ -80,6 +141,10 @@ def init_params(decls, generator: torch.Generator | None = None, device=None,
     ``dtype``."""
     dev = resolve_device(device)
     return tree_map(lambda d: _materialize(d, generator, dev, dtype), decls)
+
+
+def param_specs(decls):
+    return tree_map(lambda d: d.spec, decls)
 
 
 def param_count(decls) -> int:
@@ -185,3 +250,10 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def fsdp_spec(cfg: ModelConfig, ax: AxisEnv, dim: int):
+    """Axis to shard `dim` over for ZeRO-3, or None."""
+    if not cfg.fsdp:
+        return None
+    return ax.shard_if(dim, ax.dp)

@@ -40,7 +40,8 @@ from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import ModelConfig, ParamDecl, tree_leaves, tree_map
+from .common import (CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec,
+                     param_specs, tree_from_leaves, tree_leaves, tree_map)
 from .layers import (chunked_softmax_xent, embed_apply, embed_decls,
                      ffn_apply, ffn_decls, logits_from_hidden, norm_decl,
                      rms_norm)
@@ -50,51 +51,54 @@ from .layers import (chunked_softmax_xent, embed_apply, embed_decls,
 # Declarations
 # ---------------------------------------------------------------------------
 def _attn_block_decls(cfg: ModelConfig, stack: int | None, *, d_ff=None,
-                      moe=False, mla=False):
+                      moe=False, mla=False, ax: AxisEnv = CPU_AXES):
     st = () if stack is None else (stack,)
     return {"ln1": ParamDecl(st + (cfg.d_model,), init="ones"),
             "ln2": ParamDecl(st + (cfg.d_model,), init="ones"),
-            "attn": (mla_mod.mla_decls(cfg, stack) if mla
-                     else attn.attn_decls(cfg, stack)),
-            "ffn": (moe_mod.moe_decls(cfg, stack) if moe
-                    else ffn_decls(cfg, d_ff, stack))}
+            "attn": (mla_mod.mla_decls(cfg, stack, ax=ax) if mla
+                     else attn.attn_decls(cfg, stack, ax=ax)),
+            "ffn": (moe_mod.moe_decls(cfg, stack, ax=ax) if moe
+                    else ffn_decls(cfg, d_ff, stack, ax=ax))}
 
 
-def _mamba_block_decls(cfg: ModelConfig, stack: int | None):
+def _mamba_block_decls(cfg: ModelConfig, stack: int | None, *,
+                       ax: AxisEnv = CPU_AXES):
     st = () if stack is None else (stack,)
     return {"ln": ParamDecl(st + (cfg.d_model,), init="ones"),
-            "mix": ssm_mod.ssm_decls(cfg, stack)}
+            "mix": ssm_mod.ssm_decls(cfg, stack, ax=ax)}
 
 
-def model_decls(cfg: ModelConfig):
-    decls: dict[str, Any] = dict(embed_decls(cfg))
+def model_decls(cfg: ModelConfig, ax: AxisEnv = CPU_AXES):
+    decls: dict[str, Any] = dict(embed_decls(cfg, ax))
     decls["final_norm"] = norm_decl(cfg.d_model)
     fam = cfg.family
     if fam in ("dense", "vlm"):
-        decls["layers"] = _attn_block_decls(cfg, cfg.n_layers)
+        decls["layers"] = _attn_block_decls(cfg, cfg.n_layers, ax=ax)
         if fam == "vlm" and cfg.frontend_dim:
-            decls["vision_proj"] = ParamDecl((cfg.frontend_dim, cfg.d_model),
-                                             fan_in=cfg.frontend_dim)
+            decls["vision_proj"] = ParamDecl(
+                (cfg.frontend_dim, cfg.d_model),
+                (None, fsdp_spec(cfg, ax, cfg.d_model)),
+                fan_in=cfg.frontend_dim)
     elif fam == "moe":
         nd = cfg.n_dense_layers
         if nd:
             decls["dense_layers"] = _attn_block_decls(
-                cfg, nd, d_ff=cfg.d_ff_dense or cfg.d_ff, mla=True)
+                cfg, nd, d_ff=cfg.d_ff_dense or cfg.d_ff, mla=True, ax=ax)
         if cfg.n_layers - nd > 0:
             decls["moe_layers"] = _attn_block_decls(
-                cfg, cfg.n_layers - nd, moe=True, mla=True)
+                cfg, cfg.n_layers - nd, moe=True, mla=True, ax=ax)
     elif fam == "ssm":
-        decls["layers"] = _mamba_block_decls(cfg, cfg.n_layers)
+        decls["layers"] = _mamba_block_decls(cfg, cfg.n_layers, ax=ax)
     elif fam == "hybrid":
         pat, n_macro = _hybrid(cfg)
-        decls["shared_attn"] = _attn_block_decls(cfg, None)
+        decls["shared_attn"] = _attn_block_decls(cfg, None, ax=ax)
         for i in range(pat.count("m")):
-            decls[f"mamba{i}"] = _mamba_block_decls(cfg, n_macro)
+            decls[f"mamba{i}"] = _mamba_block_decls(cfg, n_macro, ax=ax)
     elif fam == "encdec":
-        decls["enc_layers"] = _attn_block_decls(cfg, cfg.enc_layers)
-        dec = _attn_block_decls(cfg, cfg.dec_layers)
+        decls["enc_layers"] = _attn_block_decls(cfg, cfg.enc_layers, ax=ax)
+        dec = _attn_block_decls(cfg, cfg.dec_layers, ax=ax)
         dec["ln_x"] = ParamDecl((cfg.dec_layers, cfg.d_model), init="ones")
-        dec["xattn"] = attn.attn_decls(cfg, cfg.dec_layers)
+        dec["xattn"] = attn.attn_decls(cfg, cfg.dec_layers, ax=ax)
         decls["dec_layers"] = dec
         decls["enc_final_norm"] = norm_decl(cfg.d_model)
     else:
@@ -125,14 +129,43 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device=None):
             raise ValueError(f"{path}: shape {np.shape(a)} != "
                              f"{want[path].shape}")
 
-    def convert(a):
-        a = np.asarray(a)
-        dtype = (torch.bfloat16 if a.dtype.name == "bfloat16"
-                 else getattr(torch, a.dtype.name))
-        t = torch.from_numpy(np.array(a, np.float32))
-        return t.to(device=dev, dtype=dtype)
+    return tree_map(lambda a: _from_numpy(a, dev), tree)
 
-    return tree_map(convert, tree)
+
+def _from_numpy(a, dev):
+    a = np.asarray(a)
+    dtype = (torch.bfloat16 if a.dtype.name == "bfloat16"
+             else getattr(torch, a.dtype.name))
+    return torch.from_numpy(np.array(a, np.float32)).to(device=dev,
+                                                        dtype=dtype)
+
+
+def shard_params(tree, decls, ax: AxisEnv, coords: dict, device=None):
+    """The reference's full parameter leaves (numpy, as
+    ``lm_params_from_numpy`` takes them) -> the shards that the rank at
+    ``coords`` (axis name -> index) holds under ``decls``' specs at the
+    sizes of ``ax``, on ``device``."""
+    from ..launch.dist import shard
+    dev = resolve_device(device)
+    specs = dict(tree_leaves(param_specs(decls)))
+    got = dict(tree_leaves(tree))
+    if specs.keys() != got.keys():
+        raise ValueError(f"parameter tree mismatch: "
+                         f"{sorted(specs.keys() ^ got.keys())}")
+    return tree_from_leaves(tree, {
+        path: _from_numpy(shard(np.asarray(a), specs[path], ax, coords), dev)
+        for path, a in got.items()})
+
+
+def gather_params(params, cfg: ModelConfig, mesh):
+    """The way back of ``shard_params``: every shard of a tree shaped like
+    ``model_decls(cfg, mesh.ax)`` gathered over the groups of ``mesh`` (a
+    ``launch/dist.ProcessMesh``) that cut it, so each rank gets the whole
+    tree."""
+    specs = param_specs(model_decls(cfg, mesh.ax))
+    with torch.no_grad():
+        return tree_map(lambda t, s: mesh.gather(t, s).detach(), params,
+                        specs)
 
 
 # ---------------------------------------------------------------------------
@@ -143,10 +176,12 @@ def _window(cfg: ModelConfig):
 
 
 def attn_block(p, x, positions, cfg: ModelConfig, *, causal=True,
-               moe=False, mla=False):
+               moe=False, mla=False, mesh=None):
     """Pre-norm attention (GQA/MQA, or MLA) and FFN (dense, or routed
     experts) with residuals. Returns (x, aux): the routed experts' float32
-    aux loss, 0 for a dense FFN."""
+    aux loss, 0 for a dense FFN. ``mesh`` reaches the routed experts only
+    (expert parallelism); every other op runs on the gathered weights as
+    on one device."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mla:
         h = mla_mod.mla_train(p["attn"], h, positions, cfg)
@@ -156,7 +191,7 @@ def attn_block(p, x, positions, cfg: ModelConfig, *, causal=True,
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe:
-        h, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
+        h, aux = moe_mod.moe_ffn(p["ffn"], h, cfg, mesh=mesh)
     else:
         h, aux = ffn_apply(p["ffn"], h, cfg), _zero(x)
     return x + h, aux
@@ -211,33 +246,76 @@ def _blocks(cfg: ModelConfig, x, bodies):
     return x, aux
 
 
+class _Leaves:
+    """The parameters a forward reads, and their gather on a mesh.
+
+    Without a mesh ``full`` returns its tree as it is. On a mesh
+    (``launch/dist.ProcessMesh``) it gathers each shard over the axes
+    that cut it, as the layer bodies call it inside their checkpoint, so
+    one layer's full weights are resident at a time and the backward's
+    recompute gathers again; ``moe=True`` keeps the routed experts cut
+    over ``model`` (E/ep local experts) and gathers them over the data
+    axes only, as the reference's ``fsdp_gather``."""
+
+    def __init__(self, params, cfg: ModelConfig, mesh):
+        self.params, self.mesh = params, mesh
+        self.specs = (None if mesh is None else
+                      param_specs(model_decls(cfg, mesh.ax)))
+
+    def full(self, tree, specs, moe=False):
+        if self.mesh is None:
+            return tree
+        if not moe:
+            return self.mesh.gather_tree(tree, specs)
+        out = {k: self.mesh.gather_tree(v, specs[k])
+               for k, v in tree.items() if k != "ffn"}
+        out["ffn"] = {k: self.mesh.gather(
+            v, specs["ffn"][k], ("data",) if k in ("wi", "wo")
+            else ("data", "model")) for k, v in tree["ffn"].items()}
+        return out
+
+    def top(self, name):
+        """A leaf outside the layer stacks, gathered."""
+        return self.full(self.params[name],
+                         None if self.mesh is None else self.specs[name])
+
+    def layers(self, name):
+        """(layer shards, their specs) of a stacked tree."""
+        tree = self.params.get(name)
+        spec = (None if self.mesh is None or tree is None
+                else tree_map(lambda s: s[1:], self.specs[name]))
+        return [(lp, spec) for lp in _layers(tree)]
+
+
 def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-             enc_out=None):
+             enc_out=None, mesh=None):
     """``forward``, returning (final-norm hidden states, the aux loss summed
-    over the layers: the MoE router's, float32 0 for other families)."""
-    x = embed_apply(params, tokens, cfg)
+    over the layers: the MoE router's, float32 0 for other families).
+    With ``mesh`` the inputs are this rank's batch rows and ``params`` its
+    shards (see ``_Leaves``)."""
+    pl = _Leaves(params, cfg, mesh)
+    x = embed_apply({"embedding": pl.top("embedding")}, tokens, cfg)
     if cfg.family == "vlm" and prefix_embeds is not None:
         pe = prefix_embeds.to(cfg.cdtype)
         if cfg.frontend_dim:
-            pe = pe @ params["vision_proj"].to(cfg.cdtype)
+            pe = pe @ pl.top("vision_proj").to(cfg.cdtype)
         x = torch.cat([pe, x], dim=1)
     positions = _positions(x)
     fam = cfg.family
     if fam == "hybrid":
         pat, n_macro = _hybrid(cfg)
-        mambas = [_layers(params[f"mamba{mi}"])
-                  for mi in range(pat.count("m"))]
+        mambas = [pl.layers(f"mamba{mi}") for mi in range(pat.count("m"))]
 
         def macro(i):
             def body(h):
                 a, mi = _zero(h), 0
                 for ch in pat:
                     if ch == "a":
-                        h, a0 = attn_block(params["shared_attn"], h,
+                        h, a0 = attn_block(pl.top("shared_attn"), h,
                                            positions, cfg)
                         a = a + a0
                     else:
-                        h = mamba_block(mambas[mi][i], h, cfg)
+                        h = mamba_block(pl.full(*mambas[mi][i]), h, cfg)
                         mi += 1
                 return h, a
             return body
@@ -246,35 +324,37 @@ def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
     elif fam == "moe":
         dcfg = _dense_cfg(cfg)
         x, aux = _blocks(cfg, x, [
-            (lambda h, lp=lp: attn_block(lp, h, positions, dcfg, mla=True))
-            for lp in _layers(params.get("dense_layers"))])
-        x, a1 = _blocks(cfg, x, [
-            (lambda h, lp=lp: attn_block(lp, h, positions, cfg, moe=True,
+            (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, dcfg,
                                          mla=True))
-            for lp in _layers(params.get("moe_layers"))])
+            for ls in pl.layers("dense_layers")])
+        x, a1 = _blocks(cfg, x, [
+            (lambda h, ls=ls: attn_block(pl.full(*ls, moe=True), h,
+                                         positions, cfg, moe=True, mla=True,
+                                         mesh=mesh))
+            for ls in pl.layers("moe_layers")])
         aux = aux + a1
     elif fam == "encdec":
         # each decoder layer: the causal self-attention block (attention,
         # then FFN), then cross-attention to enc_out
-        def dec(lp):
+        def dec(ls):
             def body(h):
+                lp = pl.full(*ls)
                 h, _ = attn_block(lp, h, positions, cfg)
                 hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
                 return h + _cross_attention(lp["xattn"], hx, enc_out,
                                             cfg), _zero(h)
             return body
 
-        x, aux = _blocks(cfg, x, [dec(lp)
-                                  for lp in _layers(params["dec_layers"])])
+        x, aux = _blocks(cfg, x, [dec(ls) for ls in pl.layers("dec_layers")])
     elif fam == "ssm":
         x, aux = _blocks(cfg, x, [
-            (lambda h, lp=lp: (mamba_block(lp, h, cfg), _zero(h)))
-            for lp in _layers(params["layers"])])
+            (lambda h, ls=ls: (mamba_block(pl.full(*ls), h, cfg), _zero(h)))
+            for ls in pl.layers("layers")])
     else:
         x, aux = _blocks(cfg, x, [
-            (lambda h, lp=lp: attn_block(lp, h, positions, cfg))
-            for lp in _layers(params["layers"])])
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+            (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, cfg))
+            for ls in pl.layers("layers")])
+    return rms_norm(x, pl.top("final_norm"), cfg.norm_eps), aux
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
@@ -287,14 +367,16 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
                     enc_out=enc_out)[0]
 
 
-def encode(params, frames, cfg: ModelConfig):
+def encode(params, frames, cfg: ModelConfig, mesh=None):
     """Bidirectional encoder over precomputed frontend frames (B, S, d)."""
+    pl = _Leaves(params, cfg, mesh)
     x = frames.to(cfg.cdtype)
     positions = _positions(x)
     x, _ = _blocks(cfg, x, [
-        (lambda h, lp=lp: attn_block(lp, h, positions, cfg, causal=False))
-        for lp in _layers(params["enc_layers"])])
-    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+        (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, cfg,
+                                     causal=False))
+        for ls in pl.layers("enc_layers")])
+    return rms_norm(x, pl.top("enc_final_norm"), cfg.norm_eps)
 
 
 def _cross_attention(p, x, enc_out, cfg: ModelConfig):
@@ -315,27 +397,47 @@ def _cross_attention(p, x, enc_out, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
-def lm_loss(params, batch, cfg: ModelConfig):
+def check_axes(ax, mesh):
+    """The reference passes its axis environment beside its mesh; the
+    port's ``ProcessMesh`` carries its own (``mesh.ax``), so an ``ax`` of
+    the reference's signature must be that one."""
+    if ax is not None and (mesh is None or ax != mesh.ax):
+        raise ValueError(f"ax {ax} is not the mesh's axis environment "
+                         f"{None if mesh is None else mesh.ax}")
+
+
+def lm_loss(params, batch, cfg: ModelConfig, ax=None, mesh=None):
     """The training loss, a float32 scalar. ``batch``: tokens and labels
     (B, S) on the parameters' device, an optional float32 ``mask`` (ones
     by default), and the family's extra: ``prefix_embeds`` for the vlm
     family (the loss covers the text positions only), ``src_frames`` for
     the encdec family (encoded first). The masked mean of the chunked
     cross entropy, plus ``router_aux_weight`` times the summed aux loss for
-    a model with experts."""
+    a model with experts.
+
+    With ``mesh`` (a ``launch/dist.ProcessMesh``) ``params`` are this
+    rank's shards and ``batch`` is the global batch: each rank takes its
+    rows over the data axes (all of them when B does not divide), and the
+    loss is the global mean, the same on every rank. ``ax``, the
+    reference's argument, may only name ``mesh.ax``."""
+    check_axes(ax, mesh)
+    if mesh is not None:
+        mesh = mesh.for_batch(batch["labels"].shape[0])
+        batch = {k: mesh.batch_shard(v) for k, v in batch.items()}
     kw = {}
     if cfg.family == "vlm":
         kw["prefix_embeds"] = batch["prefix_embeds"]
     if cfg.family == "encdec":
-        kw["enc_out"] = encode(params, batch["src_frames"], cfg)
-    h, aux = _forward(params, batch["tokens"], cfg, **kw)
+        kw["enc_out"] = encode(params, batch["src_frames"], cfg, mesh)
+    h, aux = _forward(params, batch["tokens"], cfg, mesh=mesh, **kw)
     labels, mask = batch["labels"], batch.get("mask")
     if cfg.family == "vlm":
         h = h[:, -labels.shape[1]:]
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=h.device)
-    loss_sum, cnt = chunked_softmax_xent(h, labels, mask, params, cfg)
+    loss_sum, cnt = chunked_softmax_xent(h, labels, mask, params, cfg,
+                                         mesh=mesh)
     loss = loss_sum / cnt.clamp_min(1.0)
     if cfg.n_experts and cfg.router_aux_weight:
         loss = loss + cfg.router_aux_weight * aux

@@ -14,28 +14,39 @@ import torch
 
 from ..device import resolve_device
 from .attention import NEG_INF, flash_attention
-from .common import ModelConfig, ParamDecl
+from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import apply_rope, rms_norm
 
 
-def mla_decls(cfg: ModelConfig, stack: int | None = None):
+def mla_decls(cfg: ModelConfig, stack: int | None = None, *,
+              ax: AxisEnv = CPU_AXES):
     d, H = cfg.d_model, cfg.n_heads
     nope, rope, vd = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
     st = () if stack is None else (stack,)
+    stp = () if stack is None else (None,)
+    f = fsdp_spec(cfg, ax, d)
+    mh = ax.shard_if(H, ax.model)
+    mq = ax.shard_if(H * (nope + rope), ax.model)
     decls = {
-        "wkv_a": ParamDecl(st + (d, r_kv + rope), fan_in=d),
+        "wkv_a": ParamDecl(st + (d, r_kv + rope), (*stp, f, None), fan_in=d),
         "kv_norm": ParamDecl(st + (r_kv,), init="ones"),
-        "w_uk": ParamDecl(st + (r_kv, H, nope), fan_in=r_kv),
-        "w_uv": ParamDecl(st + (r_kv, H, vd), fan_in=r_kv),
-        "wo": ParamDecl(st + (H * vd, d), fan_in=H * vd),
+        "w_uk": ParamDecl(st + (r_kv, H, nope), (*stp, None, mh, None),
+                          fan_in=r_kv),
+        "w_uv": ParamDecl(st + (r_kv, H, vd), (*stp, None, mh, None),
+                          fan_in=r_kv),
+        "wo": ParamDecl(st + (H * vd, d),
+                        (*stp, ax.shard_if(H * vd, ax.model), f),
+                        fan_in=H * vd),
     }
     if r_q:
-        decls["wq_a"] = ParamDecl(st + (d, r_q), fan_in=d)
+        decls["wq_a"] = ParamDecl(st + (d, r_q), (*stp, f, None), fan_in=d)
         decls["q_norm"] = ParamDecl(st + (r_q,), init="ones")
-        decls["wq_b"] = ParamDecl(st + (r_q, H * (nope + rope)), fan_in=r_q)
+        decls["wq_b"] = ParamDecl(st + (r_q, H * (nope + rope)),
+                                  (*stp, None, mq), fan_in=r_q)
     else:
-        decls["wq"] = ParamDecl(st + (d, H * (nope + rope)), fan_in=d)
+        decls["wq"] = ParamDecl(st + (d, H * (nope + rope)), (*stp, f, mq),
+                                fan_in=d)
     return decls
 
 

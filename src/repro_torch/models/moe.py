@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN: routed experts plus optional shared experts.
 
-The routing arithmetic is the JAX package's (``models/moe.py``) with every
-expert local (one device, no expert parallelism): the router's logits in
+The routing arithmetic is the JAX package's (``models/moe.py``), with every
+expert local on one device and E/tp local experts a ``model`` rank on a
+mesh (``routed_experts``): the router's logits in
 the compute dtype and its softmax in float32; the top-k experts of each
 token, their gates renormalised by their sum; the token-expert
 assignments stably sorted by expert, at most ``cpe`` kept per expert in
@@ -24,22 +25,29 @@ from __future__ import annotations
 
 import torch
 
-from .common import ModelConfig, ParamDecl
+from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import _gate
 
 
-def moe_decls(cfg: ModelConfig, stack: int | None = None):
+def moe_decls(cfg: ModelConfig, stack: int | None = None, *,
+              ax: AxisEnv = CPU_AXES):
     d, E, ff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     st = () if stack is None else (stack,)
+    stp = () if stack is None else (None,)
+    m = ax.shard_if(E, ax.model)
+    f = fsdp_spec(cfg, ax, d)
     decls = {
-        "router": ParamDecl(st + (d, E), fan_in=d),
-        "wi": ParamDecl(st + (E, d, 2 * ff), fan_in=d),
-        "wo": ParamDecl(st + (E, ff, d), fan_in=ff),
+        "router": ParamDecl(st + (d, E), (*stp, None, None), fan_in=d),
+        "wi": ParamDecl(st + (E, d, 2 * ff), (*stp, m, f, None), fan_in=d),
+        "wo": ParamDecl(st + (E, ff, d), (*stp, m, None, f), fan_in=ff),
     }
     if cfg.n_shared_experts:
         sff = cfg.n_shared_experts * ff
-        decls["shared_wi"] = ParamDecl(st + (d, 2 * sff), fan_in=d)
-        decls["shared_wo"] = ParamDecl(st + (sff, d), fan_in=sff)
+        sm = ax.shard_if(sff, ax.model)
+        decls["shared_wi"] = ParamDecl(st + (d, 2 * sff), (*stp, f, sm),
+                                       fan_in=d)
+        decls["shared_wo"] = ParamDecl(st + (sff, d), (*stp, sm, f),
+                                       fan_in=sff)
     return decls
 
 
@@ -64,20 +72,24 @@ def route(xf, router_w, cfg: ModelConfig):
     return probs, gate_w, ids
 
 
-def slot_grid(ids, cfg: ModelConfig):
-    """The dense slot grid of the routed assignments ``ids`` (t, k):
-    (token (E, cpe), assignment (E, cpe) into the flattened (t*k,) ids,
-    valid (E, cpe)). Assignments are stably sorted by expert and each
-    expert keeps its first ``cpe``; invalid slots point at a clamped
-    position and carry weight 0."""
+def slot_grid(ids, cfg: ModelConfig, lo: int = 0, n_local: int | None = None):
+    """The dense slot grid of the routed assignments ``ids`` (t, k) to the
+    ``n_local`` experts [lo, lo + n_local) (all of them by default):
+    (token (n_local, cpe), assignment (n_local, cpe) into the flattened
+    (t*k,) ids, valid (n_local, cpe)). The local assignments are stably
+    sorted by expert, the others after them, and each expert keeps its
+    first ``cpe``; invalid slots point at a clamped position and carry
+    weight 0."""
     t, k = ids.shape
-    E = cfg.n_experts
+    E = cfg.n_experts if n_local is None else n_local
     dev = ids.device
     flat_ids = ids.reshape(-1)
-    order = torch.sort(flat_ids, stable=True).indices
+    key = torch.where((flat_ids >= lo) & (flat_ids < lo + E),
+                      flat_ids - lo, E)
+    order = torch.sort(key, stable=True).indices
     cpe = expert_capacity(t, cfg)
     C = min(cpe * E, t * k)
-    counts = torch.bincount(flat_ids, minlength=E)
+    counts = torch.bincount(key, minlength=E + 1)[:E]
     gs = counts.clamp_max(cpe)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(cpe, device=dev)
@@ -111,32 +123,56 @@ def _combine(y, tok, valid, t: int, k: int):
     return out
 
 
-def routed_experts(x, router_w, wi, wo, cfg: ModelConfig):
-    """x: (B, S, d) -> (routed output (B, S, d), float32 aux loss)."""
+def routed_experts(x, router_w, wi, wo, cfg: ModelConfig, *, mesh=None):
+    """x: (B, S, d) -> (routed output (B, S, d), float32 aux loss).
+
+    On a mesh (``launch/dist.ProcessMesh``), after the reference's
+    ``_local_expert_ffn`` (``models/moe.py:61-153``): x is this rank's
+    batch shard; with ``ep = tp`` (E divisible by the model axis) wi and
+    wo are the rank's E/ep local experts [axis_index(model) * E/ep, +E/ep)
+    and each token's assignments to them fill the slot grid, whose
+    capacity comes from the shard's own tokens; the routed output is
+    summed over ``model``. The router runs replicated; x and the gates
+    enter the local experts through ``enter`` over ``model``, so their
+    gradients sum the ranks' partial work. The aux loss comes from the
+    local tokens and is averaged over the data axes."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     t = B * S
     xf = x.reshape(t, d)
     probs, gate_w, ids = route(xf, router_w, cfg)
-    tok, assign, valid = slot_grid(ids, cfg)
-    w_grid = torch.where(valid, gate_w.reshape(-1)[assign], 0.0)
-    xe = xf[tok]                                             # (E, cpe, d)
+    tp = 1 if mesh is None else mesh.size("model")
+    ep = tp if (tp > 1 and E % tp == 0) else 1
+    lo = mesh.axis_index("model") * (E // ep) if ep > 1 else 0
+    tok, assign, valid = slot_grid(ids, cfg, lo, E // ep)
+    xin, gin = xf, gate_w
+    if ep > 1:
+        xin, gin = mesh.enter(xf, "model"), mesh.enter(gate_w, "model")
+    w_grid = torch.where(valid, gin.reshape(-1)[assign], 0.0)
+    xe = xin[tok]                                            # (E_loc, cpe, d)
     h = torch.bmm(xe, wi.to(cfg.cdtype))
     g, u = h.chunk(2, dim=-1)
     h = _gate(cfg.activation, u, g)
-    y = torch.bmm(h, wo.to(cfg.cdtype))                      # (E, cpe, d)
+    y = torch.bmm(h, wo.to(cfg.cdtype))                      # (E_loc, cpe, d)
     y = y * w_grid[..., None].to(y.dtype)
     out = _combine(y, tok, valid, t, k)
+    if ep > 1:
+        out = mesh.psum(out, "model")
     # load-balance aux loss
     frac = torch.bincount(ids.reshape(-1), minlength=E).float() / ids.numel()
     imp = probs.mean(dim=0)
     aux = E * torch.sum(frac * imp)
+    if mesh is not None and mesh.split_data:
+        aux = mesh.pmean(aux, "data")
     return out.reshape(B, S, d), aux
 
 
-def moe_ffn(p, x, cfg: ModelConfig):
-    """Routed experts (+ optional shared experts). Returns (y, aux_loss)."""
-    routed, aux = routed_experts(x, p["router"], p["wi"], p["wo"], cfg)
+def moe_ffn(p, x, cfg: ModelConfig, *, mesh=None):
+    """Routed experts (+ optional shared experts). Returns (y, aux_loss).
+    On a mesh ``p["wi"]`` and ``p["wo"]`` are the rank's local experts
+    (``routed_experts``) and the shared experts' weights are whole."""
+    routed, aux = routed_experts(x, p["router"], p["wi"], p["wo"], cfg,
+                                 mesh=mesh)
     if cfg.n_shared_experts:
         h = x @ p["shared_wi"].to(cfg.cdtype)
         g, u = h.chunk(2, dim=-1)

@@ -18,17 +18,22 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ssd as ssd_kernel
-from .common import ModelConfig, ParamDecl
+from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import rms_norm, silu
 
 
-def ssm_decls(cfg: ModelConfig, stack: int | None = None):
+def ssm_decls(cfg: ModelConfig, stack: int | None = None, *,
+              ax: AxisEnv = CPU_AXES):
     d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di + 2 * N
     in_dim = 2 * di + 2 * N + H   # z, x, B, C, dt
     st = () if stack is None else (stack,)
+    stp = () if stack is None else (None,)
+    f = fsdp_spec(cfg, ax, d)
     return {
-        "in_proj": ParamDecl(st + (d, in_dim), fan_in=d),
+        "in_proj": ParamDecl(st + (d, in_dim),
+                             (*stp, f, ax.shard_if(in_dim, ax.model)),
+                             fan_in=d),
         "conv_w": ParamDecl(st + (cfg.conv_width, conv_ch),
                             fan_in=cfg.conv_width),
         "conv_b": ParamDecl(st + (conv_ch,), init="zeros"),
@@ -36,7 +41,9 @@ def ssm_decls(cfg: ModelConfig, stack: int | None = None):
         "D": ParamDecl(st + (H,), init="ones"),
         "dt_bias": ParamDecl(st + (H,), init="zeros"),
         "norm": ParamDecl(st + (di,), init="ones"),
-        "out_proj": ParamDecl(st + (di, d), fan_in=di),
+        "out_proj": ParamDecl(st + (di, d),
+                              (*stp, ax.shard_if(di, ax.model), f),
+                              fan_in=di),
     }
 
 

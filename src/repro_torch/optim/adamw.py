@@ -9,7 +9,11 @@ State dtypes:
 
 Quantized codes keep every leading axis of the parameter (only the last axis
 is padded to the block size), so a state leaf can be cut along its leading
-axis with its parameter.
+axis with its parameter. On a mesh whose group cuts a leaf's last axis the
+blocks stay the reference's global ones: a rank holds its slice of the
+padded full row's codes and the full row's scales (``opt_state_decls``'
+specs), and the update gathers the row over that group to read and to
+requantize it (``_Row``).
 
 The arithmetic is the JAX package's (``optim/adamw.py``) op by op: each op
 rounds to its dtype, and Python constants meet a bfloat16 operand as
@@ -87,11 +91,17 @@ def _moment_decl(decl: ParamDecl, cfg: AdamWConfig):
     if cfg.state_dtype == "int8":
         *lead, n = decl.shape
         npad = _pad_last(n)
-        return {"codes": ParamDecl(tuple(lead) + (npad,), init="zeros",
-                                   dtype=torch.int8),
+        spec = tuple(decl.spec)
+        spec += (None,) * (len(decl.shape) - len(spec))
+        # codes keep the param's full spec: the padded last dim is a multiple
+        # of BLOCK=256, hence divisible by any power-of-two mesh axis.
+        return {"codes": ParamDecl(tuple(lead) + (npad,), spec,
+                                   init="zeros", dtype=torch.int8),
                 "scale": ParamDecl(tuple(lead) + (npad // BLOCK,),
-                                   init="zeros", dtype=torch.float32)}
-    return ParamDecl(decl.shape, init="zeros", dtype=_state_dtype(cfg))
+                                   (*spec[:-1], None), init="zeros",
+                                   dtype=torch.float32)}
+    return ParamDecl(decl.shape, decl.spec, init="zeros",
+                     dtype=_state_dtype(cfg))
 
 
 def opt_state_decls(param_decls, cfg: AdamWConfig):
@@ -100,21 +110,52 @@ def opt_state_decls(param_decls, cfg: AdamWConfig):
             "step": ParamDecl((), init="zeros", dtype=torch.int32)}
 
 
-def adamw_init(params, cfg: AdamWConfig):
-    """Zero moments beside ``params`` (on their devices), step 0."""
-    def mk(x):
+def adamw_init(params, cfg: AdamWConfig, *, specs=None, mesh=None):
+    """Zero moments beside ``params`` (on their devices), step 0. On a
+    mesh (``launch/dist.ProcessMesh``, ``specs`` the leaves' specs) the
+    leaves are this rank's shards and each int8 moment has the local shape
+    of ``opt_state_decls``' leaf."""
+    def mk(x, spec=None):
         if cfg.state_dtype == "int8":
             *lead, n = x.shape
-            npad = _pad_last(n)
-            return {"codes": torch.zeros(tuple(lead) + (npad,),
+            k = _Row.of(x, spec, mesh).k
+            npad = _pad_last(n * k)
+            return {"codes": torch.zeros(tuple(lead) + (npad // k,),
                                          dtype=torch.int8, device=x.device),
                     "scale": torch.zeros(tuple(lead) + (npad // BLOCK,),
                                          dtype=torch.float32,
                                          device=x.device)}
         return torch.zeros(x.shape, dtype=_state_dtype(cfg), device=x.device)
     dev = next(t for _, t in tree_leaves(params)).device
-    return {"mu": tree_map(mk, params), "nu": tree_map(mk, params),
+    trees = (params,) if specs is None else (params, specs)
+    return {"mu": tree_map(mk, *trees), "nu": tree_map(mk, *trees),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+class _Row:
+    """How an int8 moment's rows lie on a mesh: ``k`` ranks of a group
+    cut a leaf's last dim (``k`` 1 off a mesh or when no group cuts it).
+    The codes of rank ``j`` are its slice of the padded full row's, the
+    scales the full row's, so ``whole`` gathers a row piece over the group
+    and ``own`` takes the rank's slice of a full one."""
+
+    def __init__(self, mesh=None, key=None):
+        self.mesh, self.key = mesh, key
+        self.k = 1 if key is None else mesh.size(key)
+        self.j = 0 if key is None else mesh.axis_index(key)
+
+    @classmethod
+    def of(cls, x, spec, mesh):
+        last = (None if mesh is None or len(spec or ()) < x.dim()
+                else spec[x.dim() - 1])
+        return cls(mesh, None if last is None else mesh.key(last))
+
+    def whole(self, x):
+        return x if self.k == 1 else self.mesh.all_gather(
+            x, self.key, x.dim() - 1)
+
+    def own(self, x, width: int):
+        return x if self.k == 1 else x.narrow(-1, self.j * width, width)
 
 
 # ---------------------------------------------------------------------------
@@ -130,13 +171,34 @@ def _pieces(x):
     return [slice(r, r + rows) for r in range(0, x.shape[0], rows)]
 
 
-def global_norm(tree):
+def global_norm(tree, specs=None, mesh=None):
     """sqrt of the sum of squares: each square in the leaf's dtype, the sums
-    in float32 (a piece at a time, so no float32 copy of a leaf is made)."""
-    total = 0
-    for _, x in tree_leaves(tree):
+    in float32 (a piece at a time, so no float32 copy of a leaf is made).
+
+    On a mesh (``launch/dist.ProcessMesh``, ``specs`` the leaves' specs)
+    ``tree`` holds this rank's shards: each piece's sum is summed over
+    the groups that cut its leaf (one all-reduce for all the pieces of a
+    kind), a replicated leaf counts once, and the pieces are then added in
+    the unsharded order, so every rank gets the whole tree's norm (on one
+    rank, bit for bit the unsharded one)."""
+    pieces = []
+    spec_of = dict(tree_leaves(specs)) if mesh is not None else {}
+    for path, x in tree_leaves(tree):
+        axes = mesh.spec_axes(spec_of[path]) if mesh is not None else ()
         for sl in _pieces(x):
-            total = total + x[sl].square().sum(dtype=torch.float32)
+            pieces.append((axes, x[sl].square().sum(dtype=torch.float32)))
+    vals = [v for _, v in pieces]
+    for axes in sorted({a for a, _ in pieces if a}):
+        at = [i for i, (a, _) in enumerate(pieces) if a == axes]
+        v = torch.stack([vals[i] for i in at])
+        with torch.no_grad():
+            for axis in axes:
+                v = mesh.psum(v, axis)
+        for j, i in enumerate(at):
+            vals[i] = v[j]
+    total = 0
+    for v in vals:
+        total = total + v
     return torch.sqrt(total)
 
 
@@ -146,30 +208,35 @@ def _math_dtype(cfg):
     return torch.bfloat16 if cfg.state_dtype == "int8" else torch.float32
 
 
-def _load(state, shape, cfg):
+def _load(state, shape, cfg, row: _Row):
     if cfg.state_dtype == "int8":
-        return dequantize_blockwise(state["codes"], state["scale"],
-                                    shape).to(_math_dtype(cfg))
+        *lead, n = shape
+        full = dequantize_blockwise(row.whole(state["codes"]), state["scale"],
+                                    (*lead, n * row.k))
+        return row.own(full, n).to(_math_dtype(cfg))
     return state.float()
 
 
-def _store(dst, val, cfg, *, round_up: bool = False):
+def _store(dst, val, cfg, row: _Row, *, round_up: bool = False):
     """Write a moment piece into its (sliced) state in place."""
     if cfg.state_dtype == "int8":
-        codes, scale = quantize_blockwise(val, round_up=round_up)
-        dst["codes"].copy_(codes)
+        codes, scale = quantize_blockwise(row.whole(val), round_up=round_up)
+        dst["codes"].copy_(row.own(codes, dst["codes"].shape[-1]))
         dst["scale"].copy_(scale)
     else:
         dst.copy_(val)
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, *,
+                 specs=None, mesh=None):
     """One AdamW step, in place: overwrites the leaves of ``params`` and of
     ``state``'s moments, and replaces ``state["step"]``. Returns (params,
-    state, grad_norm)."""
+    state, grad_norm). On a mesh the leaves are this rank's shards, the
+    clip reads the whole tree's norm (``global_norm``) and int8 moments
+    keep the global blocks (``_Row``)."""
     step = state["step"] + 1
     dev = step.device
-    gn = global_norm(grads)
+    gn = global_norm(grads, specs, mesh)
     clip = torch.clamp(torch.div(torch.tensor(cfg.grad_clip, device=dev),
                                  gn.clamp_min(1e-12)), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -183,27 +250,30 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
         # typing); PyTorch would keep a float32 opmath scalar otherwise
         return torch.tensor(v, dtype=mdt, device=dev)
 
-    def upd(p, g, mu_s, nu_s):
+    def upd(p, g, mu_s, nu_s, row):
         g = g.to(mdt) * clip.to(mdt)
-        mu = (const(b1) * _load(mu_s, p.shape, cfg)
+        mu = (const(b1) * _load(mu_s, p.shape, cfg, row)
               + const(1 - b1) * g).to(mdt)
-        nu = (const(b2) * _load(nu_s, p.shape, cfg)
+        nu = (const(b2) * _load(nu_s, p.shape, cfg, row)
               + const(1 - b2) * g.square()).to(mdt)
         delta = ((mu.float() / c1) / (torch.sqrt(nu.float() / c2) + cfg.eps)
                  + cfg.weight_decay * p.float()).to(mdt)
         p.copy_((p.to(mdt) - (lr * delta.float()).to(mdt)).to(p.dtype))
-        _store(mu_s, mu, cfg)
-        _store(nu_s, nu, cfg, round_up=True)
+        _store(mu_s, mu, cfg, row)
+        _store(nu_s, nu, cfg, row, round_up=True)
 
     def piece(s, sl):
         return {k: v[sl] for k, v in s.items()} if isinstance(s, dict) \
             else s[sl]
 
-    def one(p, g, mu_s, nu_s):
+    def one(p, g, spec, mu_s, nu_s):
+        row = _Row.of(p, spec, mesh)
         for sl in _pieces(p):
-            upd(p[sl], g[sl], piece(mu_s, sl), piece(nu_s, sl))
+            upd(p[sl], g[sl], piece(mu_s, sl), piece(nu_s, sl), row)
 
-    _zip_leaves(one, params, grads, state["mu"], state["nu"])
+    if specs is None:
+        specs = tree_map(lambda _: None, params)
+    _zip_leaves(one, params, grads, specs, state["mu"], state["nu"])
     state["step"] = step
     return params, state, gn
 

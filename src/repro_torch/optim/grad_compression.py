@@ -3,8 +3,9 @@
 Used on the slow inter-node link: each step only the top-k fraction of
 gradient magnitude is exchanged; the residual is accumulated locally and
 added to the next step's gradient (error feedback, Stich et al.), which
-preserves convergence while cutting inter-node traffic by ~1/ratio. The
-collective that ships it is multi-device work (ROADMAP.md A.10).
+preserves convergence while cutting inter-node traffic by ~1/ratio. As
+in the JAX package, no collective ships it: nothing there calls it, so
+the port keeps the function alone.
 """
 from __future__ import annotations
 

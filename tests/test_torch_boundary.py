@@ -1,7 +1,8 @@
-"""The port's boundary: nothing under src/repro_torch/ (nor chip_smoke.py,
-nor the port's example examples/train_e2e_torch.py) imports jax or the JAX
-package, and every entry point refuses to run on the CPU unless the caller
-asks for it."""
+"""The port's boundary: nothing under src/repro_torch/ (its SPMD runtime
+launch/dist.py included; nor chip_smoke.py, the port's example
+examples/train_e2e_torch.py or tools/check_lm_mesh_cards.py) imports jax
+or the JAX package, and every entry point refuses to run on the CPU
+unless the caller asks for it."""
 import ast
 import subprocess
 import sys
@@ -14,7 +15,8 @@ torch = pytest.importorskip("torch")
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "train_e2e_torch.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "train_e2e_torch.py",
+    REPO / "tools" / "check_lm_mesh_cards.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -69,7 +71,7 @@ def _entry_points():
     from repro_torch.launch import serve_prefill as prefill
     from repro_torch.launch.serve_pipeline import main, serve
     from repro_torch.data import TokenStream
-    from repro_torch.launch import train
+    from repro_torch.launch import dist, train
     from repro_torch.launch.mesh import make_mesh, make_production_mesh
     from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                           make_train_step)
@@ -115,6 +117,10 @@ def _entry_points():
         "serve": lambda: serve("OA", 1, scale=0.006024),
         "make_mesh": lambda: make_mesh((2,), ("stage",)),
         "make_production_mesh": lambda: make_production_mesh(),
+        "dist.launch": lambda: dist.launch(print, (1, 1)),
+        "train.main --mesh": lambda: train.main(
+            ["--arch", "qwen3-4b", "--smoke", "--steps", "1", "--mesh",
+             "1x1"]),
         "serve_pipeline.main": lambda: main(["--scale", "0.006024"]),
         "init_params": lambda: init_params(model_decls(lm)),
         "lm_params_from_numpy": lambda: lm_params_from_numpy(
