@@ -316,6 +316,19 @@ raises and the script exits non-zero:
    production meshes (16, 16) and (2, 16, 16), each marked whether its
    parameters and state fit 80 GB. It prints a ``{"lm_mesh": ...}`` line.
 
+20. hold the dry run (``launch/dryrun.py``) against the card, on the host
+   alone: the dry run's evaluation of one rank on a (1, 1) mesh, on meta
+   tensors with its fake process group, of phase 16 (c)'s step
+   (qwen3-4b-swa4096, 2 x 16,384) and phase 17 (c)'s (mamba2-780m, 16 x
+   4,096): the predicted peak a card beside ``max_memory_allocated`` of
+   those phases (within ``DRYRUN_PEAK_SHARE``), and the kernel calls its
+   tally counts a step (the kernels' wrappers on meta tensors, with no
+   launch) equal to the launches those
+   phases counted a step (B2: 72 forward calls, 36 of each backward
+   launch; B3: 96 tensor-core forward calls, 48 of bK1 and of each
+   tensor-core backward launch). It prints a ``{"dryrun": ...}`` line with
+   the card's name and power limit.
+
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -495,6 +508,10 @@ ZAMBA_TRAIN_COPY = {"n_layers": 3, "batch": 1, "seq": 8192}
 # state), 16 x 4,096 tokens: train_4k's global batch of 256 x 4,096 cut by
 # batch to what one card holds; 3 steps through launch/train.py's loop
 SSD_TRAIN = {"arch": "mamba2-780m", "batch": 16, "seq": 4096, "steps": 3}
+# phase 20: the dry run's predicted peak a card within this share of
+# phases 16 (c) and 17 (c)'s max_memory_allocated (0.04% and 0.47% apart
+# when first measured on the card)
+DRYRUN_PEAK_SHARE = 0.02
 # phase 18: DyPe on an H100 node. (a) the card's figures beside
 # core/device.py's H100 entries: nvidia-smi's power.draw sampled every 100 ms
 # over POWER_S seconds idle and under each loop (the first POWER_SKIP
@@ -619,13 +636,12 @@ def check_spmm(label, a, x, *, time_it=False, work=None):
 
 
 def swa_bound(B, H, KV, S, D, window, esize):
-    """Least time for the banded attention on these shapes: q, k, v read
-    once and o written once, against the q.k and p.v products of the
-    in-band (row, key) pairs only, at the dense bf16 tensor-core rate."""
-    w = min(window, S)
-    pairs = w * (w + 1) // 2 + (S - w) * w             # per (b, h)
-    flops = 4.0 * D * pairs * B * H
-    nbytes = (2 * B * H + 2 * B * KV) * S * D * esize
+    """Least time for the banded attention on these shapes: the work of
+    ``kernels/swa.py:work`` (q, k, v read once and o written once, the
+    q.k and p.v products of the in-band pairs only) at the dense bf16
+    tensor-core rate."""
+    from repro_torch.kernels import swa
+    nbytes, flops = swa.work(B, H, KV, S, D, window, esize)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -763,19 +779,11 @@ def sdpa_yardstick(q, k, v, window, scale, out):
 def swa_bwd_bound(B, H, KV, S, D, window, esize, products, stats=False,
                   grads=()):
     """Least time for ``products`` band products of the backward on these
-    shapes (each 2 * D flops a pair, phase 5's counting, at the dense bf16
-    tensor-core rate), against the bytes: q, o, do (stats) or q, do, k, v,
-    lse and delta read once, and the named gradients (or lse and delta)
-    written once."""
-    w = min(window, S)
-    pairs = w * (w + 1) // 2 + (S - w) * w
-    flops = 2.0 * D * pairs * B * H * products
-    qsz, kvsz, row = B * H * S * D * esize, B * KV * S * D * esize, B * H * S * 4
-    if stats:
-        nbytes = 3 * qsz + kvsz + 2 * row          # q, o, do, k; lse, delta
-    else:
-        nbytes = 2 * qsz + 2 * kvsz + 2 * row      # q, do, k, v, lse, delta
-        nbytes += sum(qsz if g == "dq" else kvsz for g in grads)
+    shapes, the work of ``kernels/swa.py:bwd_work``, at the dense bf16
+    tensor-core rate."""
+    from repro_torch.kernels import swa
+    nbytes, flops = swa.bwd_work(B, H, KV, S, D, window, esize, products,
+                                 stats=stats, grads=grads)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -1213,47 +1221,13 @@ def train_phase(gen, card, log):
 
 def ssd_bwd_bound(x, B, Q, part="all"):
     """Least time for the chunk scan's backward (``part`` "all") or one of
-    its launches (the FMA route's "dstate", "scan", "grads"; the
-    tensor-core route's "tc_scan", "tc_dgs", "tc_dbdc", "tc_head") on these
-    inputs: the bytes of each input read once and each output written once
-    (the whole: x, dy, B, C, dts, la and the entering states in, dx, dB,
-    dC, d dts, d da and init_state's gradient out; a launch also its
-    workspaces), against its products (bK1 dy^T C per head; bK3 C B^T,
-    (sum_h dG) B and (sum_h dG)^T C on the causal triangle once per
-    (batch, chunk), and per head dW and W^T dy on the triangle, C S^T, dy
-    S, g B and x g; of these, tc_dgs dW per head, tc_dbdc the two dG
-    products and dy S and x g, tc_head C B^T once per (batch, chunk), dW,
-    W^T dy and g B per head), at the dense bf16 tensor-core rate for bf16
-    inputs, the CUDA cores' float32 rate for float32."""
+    its launches on these inputs, the work of ``kernels/ssd.py:bwd_work``,
+    at the dense bf16 tensor-core rate for bf16 inputs, the CUDA cores'
+    float32 rate for float32."""
     import torch
-    b, L, H, P = x.shape
-    N, nc = B.shape[-1], L // Q
-    tri = Q * (Q + 1) // 2
-    es = x.element_size()
-    xs, bs, rows = b * L * H * P * es, b * L * N * es, b * L * H * 4
-    st, fin = b * nc * H * P * N * 4, b * H * P * N * 4
-    f1 = 2.0 * b * nc * H * Q * P * N
-    f2 = 3.0 * b * nc * H * P * N
-    f3 = 2.0 * b * nc * (3 * tri * N + H * (2 * tri * P + 4 * Q * P * N))
-    nbox, nt = -(-N // 64), Q // 64
-    dgs = b * nc * (nt * (nt + 1) // 2) * 64 * 64 * 4  # causal tiles of dGs
-    slices = b * nc * H * -(-P * N // 1024) * 4
-    nbytes, flops = {
-        "all": (3 * xs + 4 * bs + 4 * rows + st + fin, f1 + f2 + f3),
-        "dstate": (xs + bs + rows + st, f1),
-        "scan": (3 * st + fin + b * nc * H * 4 * 2, f2),
-        "grads": (3 * xs + 4 * bs + 4 * rows + 2 * st, f3),
-        # the tensor-core route's launches: its workspaces dGs, the row
-        # sums qc and xg (nbox partials each) and the slices of <g, S>
-        "tc_scan": (3 * st + fin + b * nc * H * 4 + slices, f2),
-        "tc_dgs": (2 * xs + 2 * rows + dgs, 2.0 * b * nc * H * tri * P),
-        "tc_dbdc": (2 * xs + 4 * bs + 2 * rows + 2 * st + dgs
-                    + 2 * nbox * rows,
-                    2.0 * b * nc * (2 * tri * N + 2 * H * Q * P * N)),
-        "tc_head": (3 * xs + 2 * bs + 4 * rows + st + 2 * nbox * rows
-                    + slices + b * nc * H * 4,
-                    2.0 * b * nc * (tri * N + H * (2 * tri * P
-                                                   + Q * P * N)))}[part]
+    from repro_torch.kernels import ssd
+    nbytes, flops = ssd.bwd_work(*x.shape, B.shape[-1], Q, x.element_size(),
+                                 part)
     rate = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -1719,24 +1693,19 @@ def ssd_inputs(gen, dev, b, L, H, P, N, dtype, slow=False):
 
 
 def ssd_bound(args, chunk, init_state=None):
-    """Least time for the SSD scan of these inputs: every input read once
-    and y and the final state written once, against its products with
-    C B^T counted once per (batch, chunk) (B and C are shared by the
-    heads) and only the causal triangle of C B^T and W x, at the dense
-    bf16 tensor-core rate for bf16 inputs (the CUDA cores' float32 rate
-    for float32)."""
+    """Least time for the SSD scan of these inputs, the work of
+    ``kernels/ssd.py:work`` (every input read once and y and the final
+    state written once, C B^T once per (batch, chunk), the causal
+    triangle only), at the dense bf16 tensor-core rate for bf16 inputs
+    (the CUDA cores' float32 rate for float32)."""
     import torch
-    x, B = args[0], args[2]
-    b, L, H, P = x.shape
-    N = B.shape[-1]
-    Q = min(chunk, L)
-    nc = L // Q
-    tri = Q * (Q + 1) // 2
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + x.numel() * x.element_size() + b * H * P * N * 4
-    if init_state is not None:
-        nbytes += init_state.numel() * init_state.element_size()
-    flops = 2.0 * b * nc * (tri * N + H * (tri * P + 2 * Q * P * N))
+    from repro_torch.kernels import ssd
+    x, dt, B, C, A_log, D = args
+    size = lambda t: t.numel() * t.element_size()         # noqa: E731
+    nbytes, flops = ssd.work(
+        *x.shape, B.shape[-1], min(chunk, x.shape[1]), x.element_size(),
+        dt_bytes=size(dt), param_bytes=size(A_log) + size(D),
+        init_bytes=0 if init_state is None else size(init_state))
     rate = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -2984,6 +2953,60 @@ def lm_mesh_rank(pm, arch, layers, batch, seq):
     return out
 
 
+def dryrun_phase(card, train16, train17):
+    """Phase 20: the dry run's evaluation of phases 16 (c) and 17 (c)'s
+    steps, one rank of a (1, 1) mesh on meta tensors, against what those
+    phases measured (see the module docstring). Returns its record."""
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.kernels import ssd, swa
+    from repro_torch.launch.dryrun import evaluate
+    from repro_torch.launch.steps import effective_config
+    t0 = time.perf_counter()
+    out = {"card": card}
+    for key, arch, shape, run, measured, tally_of in (
+            ("qwen3", TRAIN["arch"], TRAIN["shape"], TRAIN, train16, {
+                "swa_attention_wgmma": ("swa_attention_wgmma",),
+                "swa_attention_bwd_wgmma": swa.BWD_WGMMA_ENTRIES}),
+            ("mamba2", SSD_TRAIN["arch"], None, SSD_TRAIN, train17, {
+                "ssd_chunked_tc": ("ssd_chunked_tc",),
+                "ssd_chunked_bwd_tc": tuple(
+                    f.__name__ for f in ssd._BWD_KERNELS["tc"])})):
+        cfg = get_config(arch)
+        if shape:
+            cfg = effective_config(cfg, SHAPES[shape])
+        t1 = time.perf_counter()
+        rec = evaluate(cfg, ShapeSpec(f"phase-{key}", run["seq"],
+                                      run["batch"], "train"), (1, 1))
+        pred = rec["memory"]["peak_bytes"] / 2 ** 30
+        share = abs(pred - measured["peak_gib"]) / measured["peak_gib"]
+        step = measured["launches_per_step"][-1]
+        launched = {name: sorted({step.get(e, 0) for e in entries})
+                    for name, entries in tally_of.items()}
+        out[key] = {"arch": cfg.name, "tokens": [run["batch"], run["seq"]],
+                    "predicted_peak_gib": pred,
+                    "measured_peak_gib": measured["peak_gib"],
+                    "peak_share": share, "memory": rec["memory"],
+                    "kernel_calls": rec["kernel_calls"],
+                    "launches_per_step": launched,
+                    "dot_flops": rec["dot_flops"],
+                    "bytes_accessed": rec["bytes_accessed"],
+                    "trace_s": rec["trace_s"],
+                    "seconds": time.perf_counter() - t1}
+        print(json.dumps({f"dryrun {key}": out[key]}), flush=True)
+        if share > DRYRUN_PEAK_SHARE:
+            raise AssertionError(f"{key}: predicted peak {pred:.3f} GiB, "
+                                 f"measured {measured['peak_gib']:.3f} "
+                                 f"({share:.2%} apart)")
+        want = {name: [n] for name, n in rec["kernel_calls"].items()}
+        if set(rec["kernel_calls"]) != set(tally_of) or launched != want:
+            raise AssertionError(f"{key}: the dry run counts "
+                                 f"{rec['kernel_calls']} kernel calls a "
+                                 f"step; the card launched {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"dryrun": out}), flush=True)
+    return out
+
+
 def lm_mesh_phase(card):
     """Phase 19: the LM zoo's training path on a mesh (see the module
     docstring)."""
@@ -4155,6 +4178,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lm_mesh_phase(card)
+
+    # 20) the dry run against the card: predicted peaks and kernel calls
+    phase("20. the dry run (launch/dryrun.py) against the card: phases 16 "
+          "(c) and 17 (c) on meta tensors, peak memory and kernel calls")
+    dryrun_phase(card, tr["train"], st["train"])
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",

@@ -22,7 +22,13 @@ Two CUDA routes compute it on the card:
 
 ``ssd_chunked`` takes the route that ``_route`` names on a CUDA tensor and
 ``ssd_chunked_plain`` on a CPU tensor; it never falls back from one to
-another. On a CUDA tensor under grad it runs through ``_SsdChunked``: the
+another. On a meta tensor (``launch/dryrun.py``) it, ``ssd_chunked_fwd``
+and ``ssd_chunked_bwd`` run the CUDA routes' own wrappers, with their
+checks and allocations, up to each launch, which the launch helpers
+skip; each forward and each backward adds one call of the route's work
+(``work``, ``bwd_work``: the formulas that ``chip_smoke.py``'s bounds
+read) to the dry run's tally (``repro_torch/tally.py``). On a CUDA tensor
+under grad it runs through ``_SsdChunked``: the
 forward is the routed kernel, keeping la and the states entering the
 chunks (the tensor-core route's own workspaces; the FMA kernel writes
 them when asked), and the backward is ``ssd_chunked_bwd``, the route
@@ -68,6 +74,7 @@ import functools
 
 import torch
 
+from .. import tally
 from . import _build
 
 Q_MAX = 256                      # the kernels keep a chunk's rows in smem
@@ -261,8 +268,9 @@ def _kernel_operand(name, t, lead):
 
 
 def _cuda_inputs(name, x, B, C):
-    """Checks shared by both routes on a CUDA input."""
-    if x.device.type != "cuda":
+    """Checks shared by both routes on a CUDA (or, in the dry run, meta)
+    input."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on a CUDA tensor; got {x.device} "
                          "(ssd_chunked takes the plain version on the CPU)")
     if x.dtype not in _DTYPES or not (x.dtype == B.dtype == C.dtype):
@@ -273,11 +281,23 @@ def _cuda_inputs(name, x, B, C):
         raise ValueError(f"the kernels take b and H up to 65535; got {b}, {H}")
 
 
+def _fwd_tally(route, x, dts, da, B, D, s0, Q):
+    """One forward call of ``route`` on meta tensors, in the dry run's
+    tally: the work of the inputs the route's kernel reads."""
+    b, L, H, P = x.shape
+    nbytes, flops = work(b, L, H, P, B.shape[-1], Q, x.element_size(),
+                         dt_bytes=dts.nbytes + da.nbytes, param_bytes=D.nbytes,
+                         init_bytes=0 if s0 is None else s0.nbytes)
+    tally.kernel(f"ssd_chunked_{route}", flops, nbytes)
+
+
 def _fma_run(x, dts, da, B, C, D, init_state, Q, states=False):
-    """One launch of the FMA kernel -> (y, final state, la, the states
+    """One launch of the FMA kernel, counted in
+    ``ssd_chunked_fma.launches`` -> (y, final state, la, the states
     entering the chunks); with ``states`` the kernel also writes la (b, L,
     H) and the entering states (b, nc, H, P, N), float32, which the
-    backward reads; else those two are None."""
+    backward reads; else those two are None. On meta tensors (the dry run)
+    no launch, one call in the tally."""
     b, L, H, P = x.shape
     N = B.shape[-1]
     xs = _kernel_operand("x", x, 3)
@@ -293,6 +313,9 @@ def _fma_run(x, dts, da, B, C, D, init_state, Q, states=False):
         la = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
         st = torch.empty((b, L // Q, H, P, N), dtype=torch.float32,
                          device=x.device)
+    if x.is_meta:
+        _fwd_tally("fma", x, dts, da, B, Df, s0, Q)
+        return y, s_out, la, st
     ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -303,6 +326,7 @@ def _fma_run(x, dts, da, B, C, D, init_state, Q, states=False):
             *cs, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunked_fma launch failed: cudaError {err}")
+    ssd_chunked_fma.launches += 1
     return y, s_out, la, st
 
 
@@ -316,7 +340,6 @@ def ssd_chunked_fma(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     _route(x.dtype, x.shape[3], B.shape[-1], Q)   # raises on what it can't
     y, s_out, _, _ = _fma_run(x, *_discretize(dt, A_log), B, C, D,
                               init_state, Q)
-    ssd_chunked_fma.launches += 1
     return y, s_out
 
 
@@ -342,12 +365,15 @@ def _tc_launch(stages, dims, *, x=None, dts=None, da=None, B=None, C=None,
                D=None, s0=None, la, st, y=None, s_out=None):
     """One call of the C entry point: the kernels named in ``stages`` (K1,
     K2, K3 in that order) on the current stream, for dims (b, L, H, P, N,
-    Q). A stage reads only its own tensors; the others may be None."""
-    if la.device.type != "cuda":
+    Q). A stage reads only its own tensors; the others may be None. On
+    meta tensors (the dry run) it checks and returns with no launch."""
+    if la.device.type not in ("cuda", "meta"):
         raise ValueError(f"the tensor-core SSD kernels run on CUDA tensors; "
                          f"got {la.device}")
     strides = [(0,) * n if t is None else _kernel_operand(name, t, n)
                for name, t, n in (("x", x, 3), ("B", B, 2), ("C", C, 2))]
+    if la.is_meta:
+        return
     ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
     stream = torch.cuda.current_stream(la.device).cuda_stream
     mask = sum(1 << i for i, n in enumerate(_STAGE_FNS) if n in stages)
@@ -427,8 +453,10 @@ def ssd_chunk_out(x, dts, la, B, C, D, s_in, *, chunk: int):
 
 
 def _tc_run(x, dts, da, B, C, D, init_state, chunk):
-    """K1, K2 and K3 from one call -> (y, final state, la, st), st holding
-    the state entering each chunk after K2."""
+    """K1, K2 and K3 from one call, counted in ``ssd_chunked_tc.launches``
+    -> (y, final state, la, st), st holding the state entering each chunk
+    after K2. On meta tensors (the dry run) no launch, one call in the
+    tally."""
     dims = _tc_dims(*x.shape, B.shape[-1], chunk, x.dtype)
     b, L, H, P, N, Q = dims
     la = torch.empty((b, L, H), dtype=torch.float32, device=x.device)
@@ -436,9 +464,13 @@ def _tc_run(x, dts, da, B, C, D, init_state, chunk):
                      device=x.device)
     y = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
     s_out = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
-    _tc_launch(tuple(_STAGE_FNS), dims, x=x, dts=_f32(dts), da=_f32(da), B=B,
-               C=C, D=_f32(D), s0=_f32(init_state), la=la, st=st, y=y,
-               s_out=s_out)
+    dts, da, D, s0 = _f32(dts), _f32(da), _f32(D), _f32(init_state)
+    _tc_launch(tuple(_STAGE_FNS), dims, x=x, dts=dts, da=da, B=B, C=C, D=D,
+               s0=s0, la=la, st=st, y=y, s_out=s_out)
+    if x.is_meta:
+        _fwd_tally("tc", x, dts, da, B, D, s0, Q)
+    else:
+        ssd_chunked_tc.launches += 1
     return y, s_out, la, st
 
 
@@ -452,7 +484,6 @@ def ssd_chunked_tc(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     _cuda_inputs("ssd_chunked_tc", x, B, C)
     y, s_out, _, _ = _tc_run(x, *_discretize(dt, A_log), B, C, D, init_state,
                              chunk)
-    ssd_chunked_tc.launches += 1
     return y, s_out
 
 
@@ -464,13 +495,9 @@ def ssd_chunked_fwd(x, dts, da, B, C, D, *, chunk: int, init_state=None):
     route's own workspaces; the FMA kernel writes them when asked)."""
     Q = min(chunk, x.shape[1])
     _cuda_inputs("ssd_chunked_fwd", x, B, C)
-    route = _route(x.dtype, x.shape[3], B.shape[-1], Q)
-    if route == "tc":
-        out = _tc_run(x, dts, da, B, C, D, init_state, chunk)
-    else:
-        out = _fma_run(x, dts, da, B, C, D, init_state, Q, states=True)
-    _KERNELS[route].launches += 1
-    return out
+    if _route(x.dtype, x.shape[3], B.shape[-1], Q) == "tc":
+        return _tc_run(x, dts, da, B, C, D, init_state, chunk)
+    return _fma_run(x, dts, da, B, C, D, init_state, Q, states=True)
 
 
 def ssd_chunked_fwd_plain(x, dts, da, B, C, D, *, chunk: int,
@@ -488,6 +515,25 @@ _KERNELS = {"tc": ssd_chunked_tc, "fma": ssd_chunked_fma}
 _STAGE_FNS = {"ssd_chunk_state": ssd_chunk_state,     # K1, K2, K3 in order
               "ssd_state_scan": ssd_state_scan,
               "ssd_chunk_out": ssd_chunk_out}
+
+
+# ---------------------------------------------------------------------------
+# The work of a forward call (chip_smoke.py's bound and the dry run's tally
+# read it)
+# ---------------------------------------------------------------------------
+def work(b, L, H, P, N, Q, esize, *, dt_bytes, param_bytes, init_bytes=0):
+    """(bytes, FLOPs) of one forward call on x (b, L, H, P) and B, C (b, L,
+    N) of element size ``esize``, chunk Q: every input read once (dt's
+    side, ``dt_bytes``: dt, or the discretised dts and da; A_log and D,
+    ``param_bytes``; an initial state, ``init_bytes``) and y and the
+    float32 final state written once, against the products with C B^T
+    counted once per (batch, chunk) (B and C are shared by the heads) and
+    only the causal triangle of C B^T and W x."""
+    nc, tri = L // Q, Q * (Q + 1) // 2
+    nbytes = (2 * b * L * H * P * esize + 2 * b * L * N * esize + dt_bytes
+              + param_bytes + init_bytes + b * H * P * N * 4)
+    flops = 2.0 * b * nc * (tri * N + H * (tri * P + 2 * Q * P * N))
+    return nbytes, flops
 
 
 # ---------------------------------------------------------------------------
@@ -809,7 +855,7 @@ def _bwd_checks(name, dims, dtype, la, x, B, C, dy):
     B and C, zeros for a None)."""
     b, L, H, P, N, Q = dims
     dev = la.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on a CUDA tensor; got {dev} "
                          "(ssd_chunked_bwd takes the plain version on the "
                          "CPU)")
@@ -830,10 +876,13 @@ def _bwd_launch(stage: str, dims, dtype, *, x=None, dts=None, la=None,
                 dstate=None, dinit=None, dle=None, dx=None, ddts=None,
                 dda=None, dB=None, dC=None, dDp=None):
     """One entry of ``csrc/ssd_chunk_bwd.cu`` on the current stream, for
-    dims (b, L, H, P, N, Q) and x's dtype. A stage reads only its own
-    tensors; the others may be None."""
+    dims (b, L, H, P, N, Q) and x's dtype, counted in its ``.launches``. A
+    stage reads only its own tensors; the others may be None. On meta
+    tensors (the dry run) it checks and returns with no launch."""
     name = f"ssd_chunk_bwd_{stage}"
     dev, strides = _bwd_checks(name, dims, dtype, la, x, B, C, dy)
+    if dev.type == "meta":
+        return
     ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -845,6 +894,7 @@ def _bwd_launch(stage: str, dims, dtype, *, x=None, dts=None, la=None,
             *(v for t in strides for v in t), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    _BWD_ENTRY_FNS[name].launches += 1
 
 
 def ssd_chunk_bwd_dstate(dy, C, la, *, chunk: int):
@@ -856,7 +906,6 @@ def ssd_chunk_bwd_dstate(dy, C, la, *, chunk: int):
                     device=dy.device)
     _bwd_launch("dstate", dims, dy.dtype, la=_f32(la), C=C, dy=dy.contiguous(),
                 gbuf=R)
-    ssd_chunk_bwd_dstate.launches += 1
     return R
 
 
@@ -878,7 +927,6 @@ def ssd_chunk_bwd_scan(la, R, s_in, *, chunk: int, dstate=None):
                 la=_f32(la), st=_f32(s_in), gbuf=R,
                 dstate=None if dstate is None else _f32(dstate),
                 dinit=dinit, dle=dle)
-    ssd_chunk_bwd_scan.launches += 1
     return R, dinit, dle
 
 
@@ -901,7 +949,6 @@ def ssd_chunk_bwd_grads(x, dts, la, B, C, D, dy, s_in, g, dle, *,
                 B=B, C=C, D=_f32(D), dy=dy.contiguous(), st=_f32(s_in),
                 gbuf=_f32(g), dle=_f32(dle), dx=dx, ddts=ddts, dda=dda,
                 dB=dB, dC=dC, dDp=dDp)
-    ssd_chunk_bwd_grads.launches += 1
     return dx, ddts, dda, dB, dC, dDp.sum((0, 1))
 
 
@@ -921,10 +968,14 @@ def _bwd_tc_launch(stage: str, dims, *, x=None, dts=None, la=None, B=None,
                    dC=None, qc=None, xg=None, dx=None, ddts=None, dda=None,
                    dDp=None):
     """One launch of ``csrc/ssd_chunk_bwd_tc.cu`` on the current stream,
-    for dims (b, L, H, P, N, Q) of bf16 inputs. A stage reads only its own
-    tensors; the others may be None."""
+    for dims (b, L, H, P, N, Q) of bf16 inputs, counted in its
+    ``.launches``. A stage reads only its own tensors; the others may be
+    None. On meta tensors (the dry run) it checks and returns with no
+    launch."""
     name = f"ssd_chunk_bwd_tc_{stage}"
     dev, strides = _bwd_checks(name, dims, torch.bfloat16, la, x, B, C, dy)
+    if dev.type == "meta":
+        return
     ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -936,6 +987,7 @@ def _bwd_tc_launch(stage: str, dims, *, x=None, dts=None, la=None, B=None,
             *(v for t in strides for v in t), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err}")
+    _BWD_ENTRY_FNS[name].launches += 1
 
 
 def ssd_chunk_bwd_tc_scan(la, R, s_in, *, chunk: int, dstate=None):
@@ -957,7 +1009,6 @@ def ssd_chunk_bwd_tc_scan(la, R, s_in, *, chunk: int, dstate=None):
                    st=_f32(s_in), R=R, g=R,
                    dstate=None if dstate is None else _f32(dstate),
                    dinit=dinit, dlep=dlep)
-    ssd_chunk_bwd_tc_scan.launches += 1
     return R, dinit, dlep
 
 
@@ -972,7 +1023,6 @@ def ssd_chunk_bwd_tc_dgs(x, dts, la, dy, *, chunk: int):
     # N does not enter dgs; BWD_BOX stands in for it
     _bwd_tc_launch("dgs", (b, L, H, P, BWD_BOX, Q), x=x, dts=_f32(dts),
                    la=_f32(la), dy=dy.contiguous(), dgs=dgs)
-    ssd_chunk_bwd_tc_dgs.launches += 1
     return dgs
 
 
@@ -991,7 +1041,6 @@ def ssd_chunk_bwd_tc_dbdc(x, dts, la, B, C, dy, s_in, g, dgs, *,
     _bwd_tc_launch("dbdc", dims, x=x, dts=_f32(dts), la=_f32(la), B=B, C=C,
                    dy=dy.contiguous(), st=_f32(s_in), g=_f32(g),
                    dgs=_f32(dgs), dB=dB, dC=dC, qc=qc, xg=xg)
-    ssd_chunk_bwd_tc_dbdc.launches += 1
     return dB, dC, qc, xg
 
 
@@ -1011,7 +1060,6 @@ def ssd_chunk_bwd_tc_head(x, dts, la, B, C, D, dy, g, dlep, qc, xg, *,
                    D=_f32(D), dy=dy.contiguous(), g=_f32(g), dlep=_f32(dlep),
                    qc=_f32(qc), xg=_f32(xg), dx=dx, ddts=ddts, dda=dda,
                    dDp=dDp)
-    ssd_chunk_bwd_tc_head.launches += 1
     return dx, ddts, dda, dDp
 
 
@@ -1031,6 +1079,7 @@ _BWD_KERNELS = {"fma": (ssd_chunk_bwd_dstate, ssd_chunk_bwd_scan,
                 "tc": (ssd_chunk_bwd_dstate, ssd_chunk_bwd_tc_scan,
                        ssd_chunk_bwd_tc_dgs, ssd_chunk_bwd_tc_dbdc,
                        ssd_chunk_bwd_tc_head)}
+_BWD_ENTRY_FNS = {f.__name__: f for fs in _BWD_KERNELS.values() for f in fs}
 _BWD_RUNS = {"fma": _bwd_stages, "tc": _bwd_tc_stages}
 
 
@@ -1043,6 +1092,47 @@ def bwd_run(route, x, dts, la, B, C, D, s_in, dy, dstate=None, *,
                             dy, dstate, min(chunk, x.shape[1]))
 
 
+def bwd_work(b, L, H, P, N, Q, esize, part="all"):
+    """(bytes, FLOPs) of the chunk scan's backward (``part`` "all") or of
+    one of its launches (the FMA route's "dstate", "scan", "grads"; the
+    tensor-core route's "tc_scan", "tc_dgs", "tc_dbdc", "tc_head") on x
+    (b, L, H, P) and B, C (b, L, N) of element size ``esize``, chunk Q:
+    the bytes of each input read once and each output written once (the
+    whole: x, dy, B, C, dts, la and the entering states in, dx, dB, dC, d
+    dts, d da and init_state's gradient out; a launch also its
+    workspaces), against its products (bK1 dy^T C per head; bK3 C B^T,
+    (sum_h dG) B and (sum_h dG)^T C on the causal triangle once per
+    (batch, chunk), and per head dW and W^T dy on the triangle, C S^T, dy
+    S, g B and x g; of these, tc_dgs dW per head, tc_dbdc the two dG
+    products and dy S and x g, tc_head C B^T once per (batch, chunk), dW,
+    W^T dy and g B per head)."""
+    nc, tri = L // Q, Q * (Q + 1) // 2
+    xs, bs, rows = b * L * H * P * esize, b * L * N * esize, b * L * H * 4
+    st, fin = b * nc * H * P * N * 4, b * H * P * N * 4
+    f1 = 2.0 * b * nc * H * Q * P * N
+    f2 = 3.0 * b * nc * H * P * N
+    f3 = 2.0 * b * nc * (3 * tri * N + H * (2 * tri * P + 4 * Q * P * N))
+    nbox, nt = -(-N // BWD_BOX), Q // TC_STEP
+    dgs = b * nc * (nt * (nt + 1) // 2) * 64 * 64 * 4  # causal tiles of dGs
+    slices = b * nc * H * -(-P * N // BWD_SLICE) * 4
+    return {
+        "all": (3 * xs + 4 * bs + 4 * rows + st + fin, f1 + f2 + f3),
+        "dstate": (xs + bs + rows + st, f1),
+        "scan": (3 * st + fin + b * nc * H * 4 * 2, f2),
+        "grads": (3 * xs + 4 * bs + 4 * rows + 2 * st, f3),
+        # the tensor-core route's launches: its workspaces dGs, the row
+        # sums qc and xg (nbox partials each) and the slices of <g, S>
+        "tc_scan": (3 * st + fin + b * nc * H * 4 + slices, f2),
+        "tc_dgs": (2 * xs + 2 * rows + dgs, 2.0 * b * nc * H * tri * P),
+        "tc_dbdc": (2 * xs + 4 * bs + 2 * rows + 2 * st + dgs
+                    + 2 * nbox * rows,
+                    2.0 * b * nc * (2 * tri * N + 2 * H * Q * P * N)),
+        "tc_head": (3 * xs + 2 * bs + 4 * rows + st + 2 * nbox * rows
+                    + slices + b * nc * H * 4,
+                    2.0 * b * nc * (tri * N + H * (2 * tri * P
+                                                   + Q * P * N)))}[part]
+
+
 def ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dstate=None, *,
                     chunk: int):
     """Backward of the chunk scan from the forward's inputs, its la (b, L,
@@ -1053,15 +1143,22 @@ def ssd_chunked_bwd(x, dts, la, B, C, D, s_in, dy, dstate=None, *,
     On a CUDA tensor: the launches of the route that ``_bwd_route`` names,
     on the current stream (bf16: bK1, then the tensor-core scan, dgs, dbdc
     and head; float32: bK1, bK2 and bK3 on FMA; no atomics: two calls give
-    the same bits). On a CPU tensor: the FMA route's three plain stages."""
+    the same bits). On a CPU tensor: the FMA route's three plain stages.
+    On a meta tensor: the same launches' checks and allocations with no
+    launch, one call of the route's work in the dry run's tally."""
     Q = min(chunk, x.shape[1])
     if x.device.type == "cpu":
         out = ssd_chunked_bwd_stages_plain(x, dts, la, B, C, D, s_in, dy,
                                            dstate, chunk=Q)
-    elif x.device.type == "cuda":
-        out = bwd_run(_bwd_route(x.dtype, x.shape[3], B.shape[-1], Q),
-                      x, dts, la, B, C, D, s_in, dy, dstate, chunk=Q)
-        ssd_chunked_bwd.launches += 1
+    elif x.device.type in ("cuda", "meta"):
+        route = _bwd_route(x.dtype, x.shape[3], B.shape[-1], Q)
+        out = bwd_run(route, x, dts, la, B, C, D, s_in, dy, dstate, chunk=Q)
+        if x.is_meta:
+            nbytes, flops = bwd_work(*x.shape, B.shape[-1], Q,
+                                     x.element_size())
+            tally.kernel(f"ssd_chunked_bwd_{route}", flops, nbytes)
+        else:
+            ssd_chunked_bwd.launches += 1
     else:
         raise ValueError(f"unsupported device {x.device}")
     return out
@@ -1103,12 +1200,13 @@ def ssd_chunked(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     views (last dimension contiguous, rows 16-byte aligned), as
     ``mamba_block`` slices them from the conv output; B and C must have
     x's dtype, float32 or bfloat16. On a CPU tensor:
-    ``ssd_chunked_plain``, differentiable by autograd."""
+    ``ssd_chunked_plain``, differentiable by autograd. On a meta tensor:
+    the same route with no launch (the dry run)."""
     Q = _check(x, dt, B, C, A_log, D, chunk, init_state)
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, B, C, A_log, D, chunk=chunk,
                                  init_state=init_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     _cuda_inputs("ssd_chunked", x, B, C)
     kernel = _KERNELS[_route(x.dtype, x.shape[3], B.shape[-1], Q)]
@@ -1121,7 +1219,8 @@ def ssd_chunked(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
     else:
         out = kernel(x, dt, B, C, A_log, D, chunk=chunk,
                      init_state=init_state)
-    ssd_chunked.launches += 1
+    if not x.is_meta:
+        ssd_chunked.launches += 1
     return out
 
 

@@ -31,7 +31,12 @@ kernels that ``_bwd_route`` names:
 
 ``swa_attention`` takes the kernel that ``_route`` names on a CUDA tensor
 and ``swa_attention_plain`` on a CPU tensor; it never falls back from one
-to another. Each kernel's entry function counts its launches
+to another. On a meta tensor (``launch/dryrun.py``) it and
+``swa_attention_bwd`` run the CUDA route's own wrappers, with their checks
+and allocations, up to the launch, which they skip; they add one call of
+the route's work (``work``, ``bwd_work``: the formulas that
+``chip_smoke.py``'s bounds read) to the dry run's tally
+(``repro_torch/tally.py``). Each kernel's entry function counts its launches
 (``.launches``); ``swa_attention.launches`` counts both forward
 kernels.
 
@@ -50,6 +55,7 @@ import functools
 
 import torch
 
+from .. import tally
 from . import _build
 
 NEG_INF = -1e30
@@ -287,14 +293,14 @@ def _check_tiles(S: int, window: int):
 
 
 def _cuda_args(name: str, dtypes, dims, q, k, v, window: int):
-    """Checks shared by both kernels on a CUDA input; returns the output,
-    with q's strides."""
+    """Checks shared by both kernels on a CUDA (or, in the dry run, meta)
+    input; returns the output, with q's strides."""
     _check(q, k, v, window)
     _check_tiles(q.shape[2], window)
     if q.dtype not in dtypes or q.shape[3] not in dims:
         raise ValueError(f"{name} takes {dtypes} with D in {dims}; got "
                          f"{q.dtype} with D={q.shape[3]}")
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on a CUDA tensor; got {q.device} "
                          "(swa_attention takes the plain version on the CPU)")
     out = torch.empty_like(q)
@@ -317,6 +323,8 @@ def swa_attention_wgmma(q, k, v, *, window: int, scale: float):
     current stream; raises on anything else."""
     out = _cuda_args("swa_attention_wgmma", (torch.bfloat16,), WGMMA_D,
                      q, k, v, window)
+    if out.is_meta:                 # the dry run: no launch
+        return out
     B, H, S, D = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -344,6 +352,8 @@ def swa_attention_fma(q, k, v, *, window: int, scale: float):
     B, H, S, D = q.shape
     if B * H > 65535:
         raise ValueError(f"the FMA kernel takes B*H <= 65535; got {B * H}")
+    if out.is_meta:                 # the dry run: no launch
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _fma_fn()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -359,21 +369,64 @@ def swa_attention_fma(q, k, v, *, window: int, scale: float):
 _KERNELS = {"wgmma": swa_attention_wgmma, "fma": swa_attention_fma}
 
 
+# ---------------------------------------------------------------------------
+# The work of a call (chip_smoke.py's bounds and the dry run's tally read
+# these)
+# ---------------------------------------------------------------------------
+def band_pairs(S: int, window: int) -> int:
+    """The in-band (row, key) pairs of one (batch, head)."""
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def work(B, H, KV, S, D, window, esize):
+    """(bytes, FLOPs) of one forward call on these shapes: q, k, v read
+    once and o written once, against the q.k and p.v products of the
+    in-band pairs only (2 D FLOPs a pair each)."""
+    flops = 4.0 * D * band_pairs(S, window) * B * H
+    nbytes = (2 * B * H + 2 * B * KV) * S * D * esize
+    return nbytes, flops
+
+
+def bwd_work(B, H, KV, S, D, window, esize, products=5, stats=False,
+             grads=("dq", "dk", "dv")):
+    """(bytes, FLOPs) of ``products`` band products of the backward on
+    these shapes (2 D FLOPs a pair each; the whole backward is five: s
+    recomputed, dp, dv, dq, dk), against the bytes: q, o, do and k read
+    once and lse and delta written (``stats``), or q, do, k, v, lse and
+    delta read once and the named gradients written once."""
+    flops = 2.0 * D * band_pairs(S, window) * B * H * products
+    qsz, kvsz = B * H * S * D * esize, B * KV * S * D * esize
+    row = B * H * S * 4
+    if stats:
+        nbytes = 3 * qsz + kvsz + 2 * row          # q, o, do, k; lse, delta
+    else:
+        nbytes = 2 * qsz + 2 * kvsz + 2 * row      # q, do, k, v, lse, delta
+        nbytes += sum(qsz if g == "dq" else kvsz for g in grads)
+    return nbytes, flops
+
+
 def swa_attention(q, k, v, *, window: int, scale: float):
     """Banded causal attention, (B, H, S, D) -> (B, H, S, D) in q's dtype.
 
     On a CUDA tensor: the kernel that ``_route`` names, on the current
     stream; the output has q's strides, and any strides with a contiguous
     last dimension and 16-byte aligned rows are read in place. On a CPU
-    tensor: ``swa_attention_plain``."""
+    tensor: ``swa_attention_plain``. On a meta tensor: the same route with
+    no launch, one call of its work in the dry run's tally."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, window=window, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
-    out = _KERNELS[_route(q.dtype, q.shape[3])](q, k, v, window=window,
-                                                scale=scale)
-    swa_attention.launches += 1
+    route = _route(q.dtype, q.shape[3])
+    out = _KERNELS[route](q, k, v, window=window, scale=scale)
+    if q.is_meta:
+        nbytes, flops = work(*q.shape[:2], k.shape[1], *q.shape[2:], window,
+                             q.element_size())
+        tally.kernel(f"swa_attention_{route}", flops, nbytes)
+    else:
+        swa_attention.launches += 1
     return out
 
 
@@ -446,7 +499,7 @@ def _bwd_cuda_check(route: str, which: int, q, k, v, o, do, window: int):
                          f"{q.dtype} with D={q.shape[3]}")
     if q.shape[3] not in FMA_D:
         raise ValueError(f"{name} takes D in {FMA_D}; got D={q.shape[3]}")
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on a CUDA tensor; got {q.device} "
                          "(swa_attention_bwd takes the plain version on the "
                          "CPU)")
@@ -457,9 +510,11 @@ def _bwd_cuda_check(route: str, which: int, q, k, v, o, do, window: int):
 
 def _bwd_launch(route: str, which: int, q, k, v, o, do, lse, delta, dq, dk,
                 dv, *, window: int, scale: float, work=None):
-    """One entry of a backward kernel; every tensor it reads or writes must
-    have a contiguous last dimension and 16-byte aligned rows. ``work`` is
-    the wgmma dk/dv launch's float32 workspace."""
+    """One entry of a backward kernel, counted in its ``.launches``; every
+    tensor it reads or writes must have a contiguous last dimension and
+    16-byte aligned rows. ``work`` is the wgmma dk/dv launch's float32
+    workspace. On meta tensors (the dry run) it checks the strides and
+    returns with no launch."""
     name = _BWD_SOURCES[route][1][which]
     tensors = (q, k, v, o, do, dq, dk, dv)
     strides = []
@@ -471,6 +526,8 @@ def _bwd_launch(route: str, which: int, q, k, v, o, do, lse, delta, dq, dk,
                              f"dimension and 16-byte aligned rows; strides "
                              f"{t.stride()}")
         strides += t.stride()[:3]
+    if q.is_meta:
+        return
     B, H, S, D = q.shape
     arr = (ctypes.c_int64 * 24)(*strides)
     # the FMA entries take the dtype first, the wgmma ones a workspace
@@ -491,6 +548,7 @@ def _bwd_launch(route: str, which: int, q, k, v, o, do, lse, delta, dq, dk,
             f"{-err - 1000}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    _BWD_ENTRY_FNS[name].launches += 1
 
 
 def _bwd_stats(route, q, k, v, o, do, window, scale):
@@ -525,27 +583,21 @@ def _bwd_dq(route, q, k, v, o, do, lse, delta, window, scale):
 def swa_attention_bwd_stats(q, k, v, o, do, *, window: int, scale: float):
     """Launch 1 of the FMA backward kernel on CUDA tensors: (lse, delta),
     float32 (B, H, S), as ``swa_attention_bwd_stats_plain``."""
-    out = _bwd_stats("fma", q, k, v, o, do, window, scale)
-    swa_attention_bwd_stats.launches += 1
-    return out
+    return _bwd_stats("fma", q, k, v, o, do, window, scale)
 
 
 def swa_attention_bwd_dkdv(q, k, v, o, do, lse, delta, *, window: int,
                            scale: float):
     """Launch 2 of the FMA backward kernel on CUDA tensors: (dk, dv) in k's
     dtype and strides, from the row statistics of launch 1."""
-    out = _bwd_dkdv("fma", q, k, v, o, do, lse, delta, window, scale)
-    swa_attention_bwd_dkdv.launches += 1
-    return out
+    return _bwd_dkdv("fma", q, k, v, o, do, lse, delta, window, scale)
 
 
 def swa_attention_bwd_dq(q, k, v, o, do, lse, delta, *, window: int,
                          scale: float):
     """Launch 3 of the FMA backward kernel on CUDA tensors: dq in q's dtype
     and strides, from the row statistics of launch 1."""
-    out = _bwd_dq("fma", q, k, v, o, do, lse, delta, window, scale)
-    swa_attention_bwd_dq.launches += 1
-    return out
+    return _bwd_dq("fma", q, k, v, o, do, lse, delta, window, scale)
 
 
 def swa_attention_bwd_wgmma_stats(q, k, v, o, do, *, window: int,
@@ -553,27 +605,21 @@ def swa_attention_bwd_wgmma_stats(q, k, v, o, do, *, window: int,
     """Launch 1 of the wgmma backward kernel on bf16 CUDA tensors with D 64
     or 128: (lse, delta), float32 (B, H, S), as
     ``swa_attention_bwd_stats_plain``."""
-    out = _bwd_stats("wgmma", q, k, v, o, do, window, scale)
-    swa_attention_bwd_wgmma_stats.launches += 1
-    return out
+    return _bwd_stats("wgmma", q, k, v, o, do, window, scale)
 
 
 def swa_attention_bwd_wgmma_dkdv(q, k, v, o, do, lse, delta, *, window: int,
                                  scale: float):
     """Launch 2 of the wgmma backward kernel on bf16 CUDA tensors: (dk, dv)
     in k's strides, from the row statistics of launch 1."""
-    out = _bwd_dkdv("wgmma", q, k, v, o, do, lse, delta, window, scale)
-    swa_attention_bwd_wgmma_dkdv.launches += 1
-    return out
+    return _bwd_dkdv("wgmma", q, k, v, o, do, lse, delta, window, scale)
 
 
 def swa_attention_bwd_wgmma_dq(q, k, v, o, do, lse, delta, *, window: int,
                                scale: float):
     """Launch 3 of the wgmma backward kernel on bf16 CUDA tensors: dq in
     q's strides, from the row statistics of launch 1."""
-    out = _bwd_dq("wgmma", q, k, v, o, do, lse, delta, window, scale)
-    swa_attention_bwd_wgmma_dq.launches += 1
-    return out
+    return _bwd_dq("wgmma", q, k, v, o, do, lse, delta, window, scale)
 
 
 # the three launches of each route, in order: stats, dk and dv, dq
@@ -582,6 +628,7 @@ _BWD_KERNELS = {
             swa_attention_bwd_dq),
     "wgmma": (swa_attention_bwd_wgmma_stats, swa_attention_bwd_wgmma_dkdv,
               swa_attention_bwd_wgmma_dq)}
+_BWD_ENTRY_FNS = {f.__name__: f for fs in _BWD_KERNELS.values() for f in fs}
 
 
 def swa_attention_bwd(q, k, v, o, do, *, window: int, scale: float):
@@ -591,17 +638,24 @@ def swa_attention_bwd(q, k, v, o, do, *, window: int, scale: float):
     On a CUDA tensor: the three launches of the kernel that ``_bwd_route``
     names, on the current stream (S and window multiples of ``BLK``; o and
     do with the strides the kernel takes, see ``_bwd_launch``). On a CPU
-    tensor: ``swa_attention_bwd_plain``."""
+    tensor: ``swa_attention_bwd_plain``. On a meta tensor: the same
+    launches' checks and allocations with no launch, one call of the
+    route's work in the dry run's tally."""
     _check_bwd(q, k, v, o, do, window)
     if q.device.type == "cpu":
         return swa_attention_bwd_plain(q, k, v, o, do, window=window,
                                        scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
-    stats, dkdv, dq_fn = _BWD_KERNELS[_bwd_route(q.dtype, q.shape[3])]
+    route = _bwd_route(q.dtype, q.shape[3])
+    stats, dkdv, dq_fn = _BWD_KERNELS[route]
     lse, delta = stats(q, k, v, o, do, window=window, scale=scale)
     dk, dv = dkdv(q, k, v, o, do, lse, delta, window=window, scale=scale)
     dq = dq_fn(q, k, v, o, do, lse, delta, window=window, scale=scale)
+    if q.is_meta:
+        nbytes, flops = bwd_work(*q.shape[:2], k.shape[1], *q.shape[2:],
+                                 window, q.element_size())
+        tally.kernel(f"swa_attention_bwd_{route}", flops, nbytes)
     return dq, dk, dv
 
 

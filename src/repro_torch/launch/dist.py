@@ -20,6 +20,10 @@ out with ``shard_map``. This module does that job for the port with
     (``models/common.py``) and put it back, on the host; ``shard_init``
     draws a parameter tree one full leaf at a time and keeps the rank's
     slice; ``per_card_bytes`` counts what a card holds, from the specs.
+  * Each collective is counted at its call (kind, operand bytes, group)
+    while a dry run's tally is open (``repro_torch/tally.py``,
+    ``launch/dryrun.py``); ``ProcessMesh.collectives_by_axis`` names the
+    groups.
 
 The gradient rules follow from one convention: compute that is replicated
 over an axis gives every rank of it the same cotangent. So a ``psum``'s
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from .. import tally
 from ..models.common import AxisEnv, ParamDecl, tree_map
 from .mesh import Mesh, make_mesh
 
@@ -136,6 +141,9 @@ def per_card_bytes(decls, ax: AxisEnv, default_dtype) -> int:
 # ---------------------------------------------------------------------------
 def _all_reduce(x, group, op=tdist.ReduceOp.SUM):
     x = x.contiguous().clone()
+    if tally.active():
+        tally.collective("all-reduce", x.numel() * x.element_size(), group,
+                         tdist.get_world_size(group))
     tdist.all_reduce(x, op=op, group=group)
     return x
 
@@ -146,6 +154,8 @@ def _gather(x, group, n: int, dim: int):
         or tdist.all_gather_into_tensor
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    # the input's bytes: the output's over the group
+    tally.collective("all-gather", xt.numel() * xt.element_size(), group, n)
     fn(out, xt, group=group)
     # in the leaf's own layout, so that a product reads it as it reads an
     # unsharded leaf
@@ -157,6 +167,9 @@ def _reduce_scatter(g, group, n: int, dim: int):
         or tdist.reduce_scatter_tensor
     gt = g.movedim(dim, 0).contiguous()
     out = gt.new_empty((gt.shape[0] // n,) + tuple(gt.shape[1:]))
+    # the input's bytes: the output's times the group
+    tally.collective("reduce-scatter", gt.numel() * gt.element_size(),
+                     group, n)
     fn(out, gt, op=tdist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
 
@@ -301,6 +314,20 @@ class ProcessMesh:
 
     def gather_tree(self, tree, specs):
         return tree_map(self.gather, tree, specs)
+
+    def collectives_by_axis(self, counted: "tally.Tally") -> dict:
+        """A tally's collectives by the group they ran over (``"data"``,
+        ``"model"``) and kind: {axis: {kind: {"count", "bytes",
+        "group_size"}}}."""
+        name = {id(g): k for k, (g, _) in self.groups.items()}
+        out = {}
+        for (kind, group), v in counted.collectives.items():
+            e = out.setdefault(name[id(group)], {}).setdefault(
+                kind, {"count": 0, "bytes": 0,
+                       "group_size": v["group_size"]})
+            e["count"] += v["count"]
+            e["bytes"] += v["bytes"]
+        return out
 
 
 def process_mesh(mesh: Mesh, rank: int) -> ProcessMesh:

@@ -358,13 +358,23 @@ def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-            enc_out=None):
+            enc_out=None, mesh=None):
     """tokens: (B, S) integer tensor -> final-norm hidden states (B, S', d).
     prefix_embeds: (B, Sp, frontend_dim) for the vlm family, projected and
     put before the tokens (S' = Sp + S); enc_out: the encoder's hidden
-    states (``encode``) that the encdec decoder cross-attends to."""
+    states (``encode``) that the encdec decoder cross-attends to. With
+    ``mesh`` (a ``launch/dist.ProcessMesh``) the inputs are this rank's
+    batch rows and ``params`` its shards."""
     return _forward(params, tokens, cfg, prefix_embeds=prefix_embeds,
-                    enc_out=enc_out)[0]
+                    enc_out=enc_out, mesh=mesh)[0]
+
+
+def unembedding(params, cfg: ModelConfig, mesh=None):
+    """The tree ``layers.logits_from_hidden`` reads: the unembedding leaf
+    (``embedding`` when tied, else ``lm_head``), gathered whole on a
+    ``mesh``."""
+    name = "embedding" if cfg.tie_embeddings else "lm_head"
+    return {name: _Leaves(params, cfg, mesh).top(name)}
 
 
 def encode(params, frames, cfg: ModelConfig, mesh=None):

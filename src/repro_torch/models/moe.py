@@ -20,6 +20,12 @@ Two choices keep it deterministic where PyTorch alone would not be:
     slots in slot order, which is ascending expert order, and adds them
     one at a time in the output dtype, as the reference's scatter-add
     walks its updates; repeated calls give the same bits on the card.
+
+The integer index builders whose outputs have static shapes (expert
+counts, the combine's token table) are custom ops with a fake
+implementation, so that a step on meta tensors (``launch/dryrun.py``)
+runs the expert products at capacity, as the card runs them; a real
+tensor runs the same code as before.
 """
 from __future__ import annotations
 
@@ -49,6 +55,18 @@ def moe_decls(cfg: ModelConfig, stack: int | None = None, *,
         decls["shared_wo"] = ParamDecl(st + (sff, d), (*stp, sm, f),
                                        fan_in=sff)
     return decls
+
+
+@torch.library.custom_op("repro_torch::counts", mutates_args=())
+def counts(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(x, minlength=n)`` of values in [0, n): (n,)
+    int64."""
+    return torch.bincount(x, minlength=n)
+
+
+@counts.register_fake
+def _(x, n):
+    return x.new_empty((n,), dtype=torch.long)
 
 
 def expert_capacity(t: int, cfg: ModelConfig) -> int:
@@ -89,9 +107,9 @@ def slot_grid(ids, cfg: ModelConfig, lo: int = 0, n_local: int | None = None):
     order = torch.sort(key, stable=True).indices
     cpe = expert_capacity(t, cfg)
     C = min(cpe * E, t * k)
-    counts = torch.bincount(key, minlength=E + 1)[:E]
-    gs = counts.clamp_max(cpe)
-    starts = torch.cumsum(counts, 0) - counts
+    per = counts(key, E + 1)[:E]
+    gs = per.clamp_max(cpe)
+    starts = torch.cumsum(per, 0) - per
     slot = torch.arange(cpe, device=dev)
     raw_pos = starts[:, None] + slot[None, :]                # (E, cpe)
     pos = raw_pos.clamp_max(C - 1)
@@ -100,13 +118,14 @@ def slot_grid(ids, cfg: ModelConfig, lo: int = 0, n_local: int | None = None):
     return assign // k, assign, valid
 
 
-def _combine(y, tok, valid, t: int, k: int):
-    """out[tok] += y over the valid slots, without atomics: each token's
-    kept slots (at most k, in slot order) are gathered and added one at a
-    time in y's dtype. y: (E, cpe, d); tok, valid: (E, cpe)."""
-    E, cpe, d = y.shape
-    dev = y.device
-    yf = torch.cat([y.reshape(E * cpe, d), y.new_zeros((1, d))])
+@torch.library.custom_op("repro_torch::token_table", mutates_args=())
+def token_table(tok: torch.Tensor, valid: torch.Tensor, t: int,
+                k: int) -> torch.Tensor:
+    """(t, k) int64: each token's kept slots of the (E, cpe) grid, as
+    flat slot indices in slot order, padded with E * cpe (the zero row
+    of ``_combine``)."""
+    E, cpe = tok.shape
+    dev = tok.device
     s = torch.nonzero(valid.reshape(-1)).squeeze(1)          # slot order
     tk = tok.reshape(-1)[s]
     # sort the kept slots by token, keeping slot order within a token
@@ -117,6 +136,22 @@ def _combine(y, tok, valid, t: int, k: int):
     rank = torch.arange(tk.numel(), device=dev) - first[tk]
     table = torch.full((t, k), E * cpe, dtype=torch.long, device=dev)
     table[tk, rank] = s
+    return table
+
+
+@token_table.register_fake
+def _(tok, valid, t, k):
+    return tok.new_empty((t, k), dtype=torch.long)
+
+
+def _combine(y, tok, valid, t: int, k: int):
+    """out[tok] += y over the valid slots, without atomics: each token's
+    kept slots (at most k, in slot order) are gathered and added one at a
+    time in y's dtype. y: (E, cpe, d); tok, valid: (E, cpe)."""
+    E, cpe, d = y.shape
+    dev = y.device
+    yf = torch.cat([y.reshape(E * cpe, d), y.new_zeros((1, d))])
+    table = token_table(tok, valid, t, k)
     out = torch.zeros((t, d), dtype=y.dtype, device=dev)
     for j in range(k):
         out = out + yf[table[:, j]]
@@ -159,7 +194,7 @@ def routed_experts(x, router_w, wi, wo, cfg: ModelConfig, *, mesh=None):
     if ep > 1:
         out = mesh.psum(out, "model")
     # load-balance aux loss
-    frac = torch.bincount(ids.reshape(-1), minlength=E).float() / ids.numel()
+    frac = counts(ids.reshape(-1), E).float() / ids.numel()
     imp = probs.mean(dim=0)
     aux = E * torch.sum(frac * imp)
     if mesh is not None and mesh.split_data:

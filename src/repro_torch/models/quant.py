@@ -11,7 +11,8 @@ into dicts only.
 
 The weight is dequantized on each use into a compute-dtype copy; there
 is no fused int8 GEMM yet. Serving paths only (``launch/serve.py
---int8``).
+--int8``). ``abstract_quantize_params`` gives the dry run's abstract
+serving tree (``launch/steps.py:abstract_state``'s leaves).
 """
 from __future__ import annotations
 
@@ -83,3 +84,21 @@ def quantize_params(params, path=()):
     if isinstance(params, dict):
         return {k: quantize_params(v, path + (k,)) for k, v in params.items()}
     return quantize(params) if _eligible(path, params) else params
+
+
+def abstract_quantize_params(abstract_params, path=()):
+    """An abstract parameter tree (``launch/steps.py:AbstractLeaf`` leaves)
+    -> the abstract serving tree, for the dry run: each eligible leaf a
+    ``QuantizedArray`` of int8 codes cut like the leaf and a float32 scale
+    (1 on the last two dims) that every rank holds whole."""
+    if isinstance(abstract_params, dict):
+        return {k: abstract_quantize_params(v, path + (k,))
+                for k, v in abstract_params.items()}
+    leaf = abstract_params
+    if not _eligible(path, leaf):
+        return leaf
+    axes = _scale_axes(len(leaf.shape))
+    s_shape = tuple(1 if i in axes else d for i, d in enumerate(leaf.shape))
+    return QuantizedArray(
+        type(leaf).of(leaf.shape, torch.int8, leaf.spec, leaf.ax),
+        type(leaf).of(s_shape, torch.float32, (), leaf.ax))

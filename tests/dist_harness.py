@@ -11,9 +11,14 @@ the test on one numpy input file:
 
 IN is a pickle of the numpy parameters and batches of each case; OUT a
 pickle of the losses, gradients, updated parameters and AdamW states,
-whole (the port's gathered over the groups that cut each leaf). Every model copy is float32 with
-``fsdp=True`` (``case_config``).
+whole (the port's gathered over the groups that cut each leaf), the
+prefill step's last-position logits of each case (the port's rows
+gathered over data), and, on the port's side, the collectives that the
+first train step of each ``TRAIN`` case counted (``repro_torch.tally``,
+by group and kind). Every model copy is float32 with ``fsdp=True``
+(``case_config``).
 """
+import contextlib
 import os
 import pickle
 import sys
@@ -85,7 +90,7 @@ def run_ref(inp):
     import jax.numpy as jnp
     import repro.configs as configs
     from repro.launch.mesh import make_mesh
-    from repro.launch.steps import make_train_step
+    from repro.launch.steps import make_prefill_step, make_train_step
     from repro.models import axis_env_for_mesh, lm_loss, model_decls
     from repro.models.common import ParamDecl
     from repro.optim import AdamWConfig, adamw_init
@@ -101,6 +106,8 @@ def run_ref(inp):
             jnp.asarray(inp[name]["params"][jax.tree_util.keystr(kp)])
             for kp, _ in flat])
         batch = {k: jnp.asarray(v) for k, v in inp[name]["batch"].items()}
+        prefill = np.asarray(jax.jit(make_prefill_step(cfg, ax, mesh))(
+            params, batch))
         if name in TRAIN:
             step = jax.jit(make_train_step(cfg, ax, mesh))
             opt = adamw_init(params, AdamWConfig(
@@ -116,6 +123,7 @@ def run_ref(inp):
             loss, grads = jax.jit(jax.value_and_grad(
                 lambda p: lm_loss(p, batch, cfg, ax, mesh)))(params)
             res = {"loss": float(loss), "grads": grads}
+        res["prefill"] = prefill
         for k in ("params", "grads", "state"):
             if k in res:
                 res[k] = {jax.tree_util.keystr(kp): np.asarray(v)
@@ -156,9 +164,9 @@ def collectives(pm):
 
 def _port_case(pm, name, inp):
     import torch
-    from repro_torch import configs
+    from repro_torch import configs, tally
     from repro_torch.launch.dist import local_shape
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
     from repro_torch.models import lm
     from repro_torch.models import moe as pmoe
     from repro_torch.models.common import (param_specs, tree_from_leaves,
@@ -170,14 +178,22 @@ def _port_case(pm, name, inp):
     tree = tree_from_leaves(lm.model_decls(cfg), inp["params"])
     params = lm.shard_params(tree, decls, pm.ax, pm.coords, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
-    res = {}
+    with torch.no_grad():
+        logits = make_prefill_step(cfg, mesh=pm)(params, batch)
+        if pm.for_batch(_rows(batch)).split_data:
+            logits = pm.all_gather(logits, "data", 0)
+    res = {"prefill": logits.numpy()}
     if name in TRAIN:
         ocfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
         step = make_train_step(cfg, ocfg, mesh=pm)
         opt = adamw_init(params, ocfg, specs=param_specs(decls), mesh=pm)
         ms = []
-        for _ in range(STEPS):
-            params, opt, m = step(params, opt, batch)
+        for i in range(STEPS):
+            with (tally.counting() if i == 0 else contextlib.nullcontext()
+                  ) as counted:
+                params, opt, m = step(params, opt, batch)
+            if i == 0:
+                res["tally"] = pm.collectives_by_axis(counted)
             ms.append(m)
         sdecls = dict(tree_leaves(opt_state_decls(decls, ocfg)))
         with torch.no_grad():
@@ -223,6 +239,10 @@ def _port_case(pm, name, inp):
         if k in res:
             res[k] = {p: t.numpy() for p, t in tree_leaves(res[k])}
     return res
+
+
+def _rows(batch) -> int:
+    return batch["tokens"].shape[0]
 
 
 def port_rank(pm, inp):

@@ -29,11 +29,18 @@ same seeded numpy parameters:
   * a (1, 1) world: the mesh path's train step equal to the unsharded one
     bit for bit;
   * ``launch/train.py --mesh 2x2 --device cpu``: the loss lines of
-    ``--mesh 1x1``.
+    ``--mesh 1x1``;
+  * every case's prefill step on the mesh (``make_prefill_step(mesh=)``)
+    against the reference's ``make_prefill_step`` on its (2, 2) mesh;
+  * the dry run (``launch/dryrun.py``): the collectives that one rank of
+    a fake (2, 2) world counts on meta tensors for gemma-2b's int8 train
+    step equal those that the gloo world's ranks counted in the same
+    step.
 
 Bounds as tests/test_torch_train.py: the loss within 1e-5 relative, each
 gradient within 1e-4 of its leaf's largest element; updated parameters
-within 1e-5 of each leaf's largest.
+within 1e-5 of each leaf's largest; the prefill logits as
+tests/test_torch_lm.py's float32 prefill step, 1e-4.
 """
 import os
 import pickle
@@ -53,7 +60,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 import dist_harness as dh
 from repro_torch import configs as tconfigs
-from repro_torch.launch import dist
+from repro_torch.launch import dist, dryrun
 from repro_torch.models import lm
 from repro_torch.models.common import AxisEnv, tree_from_leaves, tree_leaves
 
@@ -63,6 +70,7 @@ REPO = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-5
 GRAD_SHARE = 1e-4
 PARAM_SHARE = 1e-5
+PREFILL_TOL = 1e-4
 TIMEOUT = 300                     # seconds for each of the subprocesses
 CLI = ["-m", "repro_torch.launch.train", "--arch", "qwen3-4b", "--smoke",
        "--steps", "2", "--device", "cpu", "--mesh"]
@@ -315,6 +323,37 @@ def test_one_device_mesh_equals_the_unsharded_step(runs, name):
     assert np.array_equal(got["grad_norm"], want["grad_norm"])
     for k, w in want["params"].items():
         assert np.array_equal(got["params"][k], w), k
+
+
+@pytest.mark.parametrize("name", list(dh.CASES) + ["gemma_rows3"])
+def test_prefill_step_on_a_mesh_matches_reference(runs, name):
+    """``make_prefill_step(cfg, mesh=)`` on every rank (the rows of the
+    rank's data shard, gathered; every row on every rank for the 3 rows
+    that do not divide) against the reference's ``make_prefill_step(cfg,
+    ax, mesh)`` on its (2, 2) mesh; the 3-row case against the first 3
+    rows of gemma's (each row's logits are its own)."""
+    want = runs["ref"]["gemma" if name == "gemma_rows3" else name][
+        "prefill"]
+    for r in runs["port"]["2x2"]:
+        got = r[name]["prefill"]
+        np.testing.assert_allclose(got, want[:got.shape[0]],
+                                   atol=PREFILL_TOL, rtol=PREFILL_TOL)
+
+
+def test_dry_run_tally_matches_the_gloo_world(runs):
+    """One rank of a fake (2, 2) world on meta tensors
+    (``dryrun.evaluate``) counts the collectives that every rank of the
+    gloo world counted in the same train step of gemma-2b with int8
+    moments (the vocab-parallel loss, FSDP gathers and reduce-scatters,
+    the moments' row gathers, the norm's sums): kind, group, count and
+    bytes."""
+    from repro_torch.configs import ShapeSpec
+    cfg = dh.case_config(tconfigs, "gemma_int8")
+    rec = dryrun.evaluate(cfg, ShapeSpec("case", dh.S, dh.B, "train"),
+                          (2, 2))
+    assert rec["collectives_by_axis"]["model"]["all-reduce"]["count"] > 0
+    for r in runs["port"]["2x2"]:
+        assert r["gemma_int8"]["tally"] == rec["collectives_by_axis"]
 
 
 def _loss_lines(stdout):
