@@ -1,2 +1,4 @@
-"""Checkpointing: async save, atomic commit, restart discovery."""
-from .ckpt import (Checkpointer, latest_step, save_pytree, restore_pytree)
+"""Checkpointing: async save, atomic commit, restart discovery, on one
+device or on a mesh."""
+from .ckpt import (Checkpointer, gathered_leaves, latest_step, restore_pytree,
+                   save_pytree)

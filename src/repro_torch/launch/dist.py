@@ -15,7 +15,9 @@ out with ``shard_map``. This module does that job for the port with
     for ``model`` and one for the data axes (``data`` may span
     ``("pod", "data")``), and the collectives, each with the backward that
     the layout needs (``psum``, ``enter``, ``pmax``, ``pmean``,
-    ``axis_index``, ``all_gather``).
+    ``axis_index``, ``all_gather``; for tensor parallelism over ``model``,
+    ``models/tp.py``: ``take``, an all-to-all of asked columns,
+    ``allsum`` and ``own``).
   * ``shard``/``unshard``/``local_shape`` cut a full tensor by a spec
     (``models/common.py``) and put it back, on the host; ``shard_init``
     draws a parameter tree one full leaf at a time and keeps the rank's
@@ -32,7 +34,11 @@ hands each rank its own slice of the cotangent, and a gather over the data
 axes, whose ranks computed on other batch rows, reduce-scatters (sums)
 it. A leaf that the data axes do not cut enters through ``enter`` over
 data, so its gradient is summed over the batch shards. Summing over
-``model`` instead would double every such gradient at tp 2.
+``model`` instead would double every such gradient at tp 2. Work that is
+split over ``model`` (each rank its own heads) is partial: what feeds it
+from replicated compute sums its cotangents over ``model`` (``enter``,
+``take``'s backward, ``allsum``), and what it hands back to replicated
+compute is summed once in the forward (``psum``).
 """
 from __future__ import annotations
 
@@ -202,6 +208,120 @@ class _Enter(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
+class _AllSum(torch.autograd.Function):
+    """Sum over a group whose consumers are per-rank partial work (a sum
+    of squares over a feature dim cut over ``model``): the backward sums
+    the ranks' partial cotangents too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Own(torch.autograd.Function):
+    """This rank's slice (of ``n``) of a tensor that the group holds
+    replicated; the backward gathers the slices' cotangents, so the
+    replicated producer gets the whole cotangent on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        w = x.shape[dim] // n
+        return x.narrow(dim, index * w, w).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.n, ctx.dim), None, None, None, None
+
+
+def _all_to_all(x, group, out_sizes, in_sizes):
+    """``all_to_all_single`` along dim 0 with these split sizes (rows to
+    and from each rank of the group)."""
+    out = x.new_empty((sum(out_sizes),) + tuple(x.shape[1:]))
+    tally.collective("all-to-all", x.numel() * x.element_size(), group,
+                     len(in_sizes))
+    tdist.all_to_all_single(out, x.contiguous(), out_sizes, in_sizes,
+                            group=group)
+    return out
+
+
+def _pieces(ranges, lo: int, hi: int):
+    """The parts of ``ranges`` ((start, stop) pairs, in order) inside
+    [lo, hi)."""
+    return [(max(a, lo), min(b, hi)) for a, b in ranges
+            if max(a, lo) < min(b, hi)]
+
+
+class _Take(torch.autograd.Function):
+    """Each rank's own columns of a leaf that the group cuts along ``dim``
+    (rank r holds [r*w, (r+1)*w) of it): ``ranges[j]``, (start, stop)
+    pairs of the whole dim in the order rank j wants them, which may
+    repeat or skip columns. One all-to-all of only the asked columns;
+    its backward is the transposed all-to-all, each rank adding what it
+    gets into its shard's columns, so a column that several ranks took
+    sums their (partial) cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim, ranges):
+        w = x.shape[dim]
+        base = index * w
+        send = [_pieces(ranges[j], base, base + w) for j in range(n)]
+        recv = [_pieces(ranges[index], r * w, (r + 1) * w) for r in range(n)]
+        xt = x.movedim(dim, 0)
+        parts = [xt[a - base:b - base] for sj in send for a, b in sj]
+        got = _all_to_all(torch.cat(parts) if parts else xt[:0], group,
+                          [_width(p) for p in recv],
+                          [_width(p) for p in send])
+        segs = _layout(recv, ranges[index], w)
+        ctx.group, ctx.dim, ctx.w, ctx.base = group, dim, w, base
+        ctx.send, ctx.recv, ctx.segs = send, recv, segs
+        return torch.cat([got[o:o + k] for o, k in segs]).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        gt = g.movedim(ctx.dim, 0)
+        # the cotangent of each received row, back where it came from
+        buf = gt.new_empty((sum(k for _, k in ctx.segs),) + gt.shape[1:])
+        i = 0
+        for o, k in ctx.segs:
+            buf[o:o + k] = gt[i:i + k]
+            i += k
+        back = _all_to_all(buf, ctx.group, [_width(p) for p in ctx.send],
+                           [_width(p) for p in ctx.recv])
+        gx = back.new_zeros((ctx.w,) + tuple(back.shape[1:]))
+        i = 0
+        for sj in ctx.send:
+            for a, b in sj:
+                gx[a - ctx.base:b - ctx.base] += back[i:i + b - a]
+                i += b - a
+        return gx.movedim(0, ctx.dim), None, None, None, None, None
+
+
+def _width(pieces) -> int:
+    return sum(b - a for a, b in pieces)
+
+
+def _layout(recv, ranges, w: int) -> list:
+    """Where each piece of the taken output lies in the received buffer,
+    (offset, rows) in output order: each asked range in turn, its pieces
+    by source rank. The buffer holds each source's pieces in range
+    order, the sources one after another."""
+    start = np.concatenate([[0], np.cumsum([_width(p) for p in recv])])
+    pos, segs = [0] * len(recv), []
+    for a, b in ranges:
+        for r in range(len(recv)):
+            lo, hi = max(a, r * w), min(b, (r + 1) * w)
+            if lo < hi:
+                segs.append((int(start[r]) + pos[r], hi - lo))
+                pos[r] += hi - lo
+    return segs
+
+
 class _AllGather(torch.autograd.Function):
     """Tiled gather along ``dim``. Backward: reduce-scatter (sum) when the
     group's ranks computed on other rows (``reduce``), else the rank's own
@@ -275,6 +395,13 @@ class ProcessMesh:
         i = self.axis_index(DATA)
         return t[i * n:(i + 1) * n]
 
+    def broadcast_object(self, obj):
+        """Global rank 0's ``obj`` (picklable), on every rank of the
+        world."""
+        box = [obj]
+        tdist.broadcast_object_list(box, src=0)
+        return box[0]
+
     # -- collectives ------------------------------------------------------
     def psum(self, x, axis):
         return _Psum.apply(x, self.groups[self.key(axis)][0])
@@ -287,6 +414,10 @@ class ProcessMesh:
         return _all_reduce(x.detach(), self.groups[self.key(axis)][0],
                            tdist.ReduceOp.MAX)
 
+    def reduce(self, x, axis):
+        """Sum over the axis, outside autograd (a backward's own sum)."""
+        return _all_reduce(x, self.groups[self.key(axis)][0])
+
     def pmean(self, x, axis):
         return self.psum(x, axis) / self.size(axis)
 
@@ -297,23 +428,46 @@ class ProcessMesh:
                                 ranks.index(self.rank), dim,
                                 k == DATA and self.split_data)
 
+    def allsum(self, x, axis):
+        """Sum over the axis, forward and backward (``_AllSum``)."""
+        return _AllSum.apply(x, self.groups[self.key(axis)][0])
+
+    def own(self, x, axis, dim: int):
+        """This rank's slice of a tensor replicated over the axis
+        (``_Own``)."""
+        group, ranks = self.groups[self.key(axis)]
+        return _Own.apply(x, group, len(ranks), ranks.index(self.rank),
+                          dim % x.dim())
+
+    def take(self, x, axis, dim: int, ranges):
+        """The columns ``ranges[axis_index]`` of a leaf that the axis cuts
+        along ``dim`` (``x`` the rank's shard), where ``ranges`` lists, for
+        every rank of the axis, the (start, stop) pairs of the whole dim
+        it wants, in order (``_Take``: one all-to-all)."""
+        group, ranks = self.groups[self.key(axis)]
+        ranges = tuple(tuple((int(a), int(b)) for a, b in rj)
+                       for rj in ranges)
+        return _Take.apply(x, group, len(ranks), ranks.index(self.rank),
+                           dim % x.dim(), ranges)
+
     def spec_axes(self, spec) -> tuple:
         """The groups (``"data"``, ``"model"``) that cut a leaf."""
         return tuple(sorted({self.key(e) for e in spec if e is not None}))
 
     def gather(self, t, spec, axes=(DATA, MODEL)):
         """A leaf's shard gathered over the groups in ``axes`` that cut it.
-        A leaf that the data axes do not cut enters over data, so that
-        its gradient sums over the batch shards."""
+        A gather that covers the data axes enters a leaf that they do not
+        cut over data, so that its gradient sums over the batch shards."""
         for dim, e in enumerate(spec):
             if e is not None and self.key(e) in axes:
                 t = self.all_gather(t, e, dim)
-        if self.split_data and DATA not in self.spec_axes(spec):
+        if (DATA in axes and self.split_data
+                and DATA not in self.spec_axes(spec)):
             t = self.enter(t, DATA)
         return t
 
-    def gather_tree(self, tree, specs):
-        return tree_map(self.gather, tree, specs)
+    def gather_tree(self, tree, specs, axes=(DATA, MODEL)):
+        return tree_map(lambda t, s: self.gather(t, s, axes), tree, specs)
 
     def collectives_by_axis(self, counted: "tally.Tally") -> dict:
         """A tally's collectives by the group they ran over (``"data"``,

@@ -58,7 +58,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     then ``adamw_init(..., specs=, mesh=)``), the batch is the global one
     (each microbatch is cut over the data axes inside ``lm_loss``), the
     gradients land on the shards, the clip reads the whole tree's norm,
-    and the loss is the global mean."""
+    and the loss is the global mean. On a model axis of more than one rank
+    each layer splits its products over it (``models/tp.py``)."""
     lm.check_axes(ax, mesh)
     if mesh is not None:
         device = mesh.device
@@ -120,7 +121,8 @@ def make_prefill_step(cfg: ModelConfig, device=None, *, mesh=None):
     over the data axes as ``lm.lm_loss`` cuts it (all of it on every rank
     when B does not divide); the step returns the logits of this rank's
     rows, from the unembedding gathered whole, as the reference's output
-    stays cut over data."""
+    stays cut over data. The layers split their products over ``model``
+    as in training (``models/tp.py``)."""
     if mesh is not None:
         device = mesh.device
     dev = resolve_device(device)

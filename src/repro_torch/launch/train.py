@@ -1,4 +1,4 @@
-"""Training launcher: any architecture of the zoo, on one device.
+"""Training launcher: any architecture of the zoo, on one device or a mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --smoke \\
       --steps 30 [--ckpt-dir /tmp/ckpt] [--device cpu]
@@ -8,8 +8,11 @@ runs, on one card, or with ``--mesh DxM`` on a (data, model) mesh of D x M
 cards: one process a card (``launch/dist.py``), each holding its shards of
 the parameters and the AdamW state in the reference's layout, the batch
 cut over data. ``--mesh`` with ``--device cpu`` runs the same on CPU
-processes over gloo. A sharded checkpoint is not written yet, so
-``--mesh`` with ``--ckpt-dir`` raises.
+processes over gloo.
+``--ckpt-dir`` works with or without ``--mesh``: on a mesh every rank
+joins the save, each leaf is gathered whole and rank 0 writes it, in the
+one-device layout, and a restart (on any mesh shape, or on one device)
+cuts each rank's slice from the files.
 ``--shape`` routes the config through ``effective_config`` as the
 reference's ``steps.step_fn`` routes a shape: ``--shape long_500k`` trains
 the dense archs with sliding-window attention, window 4096, whose band
@@ -29,10 +32,11 @@ kernels; zamba2-7b the same way):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
         --steps 3 --batch 16 --seq 4096
 
-qwen3-8b, which one card cannot hold with its AdamW state, on four cards:
+qwen3-8b, which one card cannot hold with its AdamW state, on four cards,
+checkpointing every 10 steps (a rerun of the same command resumes):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
-        --mesh 2x2 --steps 3 --batch 8 --seq 4096
+        --mesh 2x2 --steps 30 --batch 8 --seq 4096 --ckpt-dir /tmp/ckpt
 """
 from __future__ import annotations
 
@@ -60,15 +64,12 @@ from ..kernels import (ssd_chunk_bwd_dstate, ssd_chunk_bwd_grads,
 from ..models.common import (ModelConfig, init_params, param_count,
                              param_specs)
 from ..models.lm import model_decls
-from ..optim import AdamWConfig, adamw_init
+from ..optim import AdamWConfig, adamw_init, opt_state_decls
 from .dist import launch, shard_init
 from .steps import effective_config, make_train_step
 
 SEED = 0              # weights (torch.Generator on the device)
 LOG_EVERY = 5         # a [train] line every LOG_EVERY steps and the last
-CKPT_ON_A_MESH = ("--ckpt-dir with --mesh: the checkpoint would hold one "
-                  "rank's shards only; a sharded checkpoint is not written "
-                  "yet")
 # the kernel entries a training step can launch, each counting its launches
 COUNTERS = (swa_attention, swa_attention_wgmma, swa_attention_fma,
             swa_attention_bwd_wgmma_stats, swa_attention_bwd_wgmma_dkdv,
@@ -100,12 +101,13 @@ def train(cfg: ModelConfig, *, steps: int = 30, batch: int = 8,
     in ``ckpt_dir``) up to ``steps``; a checkpoint every ``ckpt_every``
     steps after the first. With ``mesh`` (a ``launch/dist.ProcessMesh``,
     every rank calling) the same seeded draws are cut to this rank's
-    shards one leaf at a time, and only rank 0 prints."""
-    if mesh is not None and ckpt_dir:
-        raise ValueError(CKPT_ON_A_MESH)
+    shards one leaf at a time, the checkpoint is the whole tree's
+    (``checkpoint/ckpt.py``), and only rank 0 prints."""
     dev = resolve_device(device if mesh is None else mesh.device)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    log = mesh is None or mesh.rank == 0
     ocfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    specs = None
     if mesh is None:
         params = init_params(model_decls(cfg), gen, dev, cfg.pdtype)
         opt = adamw_init(params, ocfg)
@@ -113,18 +115,22 @@ def train(cfg: ModelConfig, *, steps: int = 30, batch: int = 8,
         decls = model_decls(cfg, mesh.ax)
         params = shard_init(decls, gen, dev, cfg.pdtype, mesh.ax, mesh.coords)
         opt = adamw_init(params, ocfg, specs=param_specs(decls), mesh=mesh)
+        specs = {"params": param_specs(decls),
+                 "opt": param_specs(opt_state_decls(decls, ocfg)),
+                 "step": ()}
     step_fn = make_train_step(cfg, ocfg, device=dev, mesh=mesh)
-    log = mesh is None or mesh.rank == 0
 
     start = 0
-    ck = Checkpointer(ckpt_dir) if ckpt_dir else None
+    ck = (Checkpointer(ckpt_dir, mesh=mesh, specs=specs) if ckpt_dir
+          else None)
     if ck is not None:
         restored, s = ck.restore_latest({"params": params, "opt": opt,
                                          "step": 0})
         if restored is not None:
             params, opt = restored["params"], restored["opt"]
             start = int(restored["step"]) + 1
-            print(f"[train] resumed from committed step {s}")
+            if log:
+                print(f"[train] resumed from committed step {s}")
 
     res = TrainResult(cfg, params, opt, start, {}, {}, {}, {}, batch * seq)
     stream = TokenStream(batch, seq, cfg.vocab_size, device=dev).start(start)
@@ -212,8 +218,6 @@ def main(argv=None):
     swa = (f", attention {cfg.attention} window {cfg.window}"
            if cfg.attention == "swa" else "")
     if args.mesh is not None:
-        if args.ckpt_dir:              # before any rank is spawned
-            raise ValueError(CKPT_ON_A_MESH)
         where = f"{args.mesh[0] * args.mesh[1]} devices"
     else:
         dev = resolve_device(args.device)

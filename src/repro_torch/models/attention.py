@@ -23,6 +23,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.ops import swa_attention_op
+from . import tp
 from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import apply_rope, rms_norm
 
@@ -52,11 +53,11 @@ def attn_decls(cfg: ModelConfig, stack: int | None = None, *,
     return decls
 
 
-def _qkv(p, x, positions, cfg: ModelConfig):
+def _qkv(p, x, positions, cfg: ModelConfig, mesh=None):
     B, S, _ = x.shape
-    q = x @ p["wq"].to(cfg.cdtype)
-    k = x @ p["wk"].to(cfg.cdtype)
-    v = x @ p["wv"].to(cfg.cdtype)
+    q = tp.proj(mesh, x, p["wq"].to(cfg.cdtype))
+    k = tp.proj(mesh, x, p["wk"].to(cfg.cdtype))
+    v = tp.proj(mesh, x, p["wv"].to(cfg.cdtype))
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
@@ -177,21 +178,69 @@ def swa_attention(q, k, v, *, window: int, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# Heads over the model axis
+# ---------------------------------------------------------------------------
+def tp_heads(p, cfg: ModelConfig, mesh):
+    """(leaves, config, mesh) of this rank's share of an attention layer
+    whose leaves ``p`` are gathered over the data axes (``models/tp.py``).
+    With n_heads dividing over ``model`` the rank computes its H/tp query
+    heads: wq and wo are its stored shards, wk and wv its own KV heads
+    (the stored shards where n_kv_heads divides; otherwise only the KV
+    heads its query heads read, by ``tp.kv_heads``: at qwen3-8b's tp 16
+    the stored cut of wk is half a head), q_norm/k_norm enter over
+    ``model``; the config holds the local head counts and the mesh is
+    returned for the column-parallel products and the sum. Otherwise (or off a mesh with a
+    model axis) every leaf whole, the config as it is, and no mesh:
+    replicated compute."""
+    mesh = tp.tp_mesh(mesh)
+    if mesh is None:
+        return p, cfg, None
+    decls = attn_decls(cfg, ax=mesh.ax)
+    n, D = mesh.size("model"), cfg.head_dim
+    if cfg.n_heads % n:
+        return tp.whole(mesh, p, decls), cfg, None
+    hl = cfg.n_heads // n
+
+    def heads(j):
+        return [tp.block(j, hl * D)]
+
+    def kv(j):
+        return tp.merge([(h * D, (h + 1) * D) for h in
+                         tp.kv_heads(cfg.n_heads, cfg.n_kv_heads, n, j)])
+
+    out = {"wq": tp.take(mesh, p["wq"], decls["wq"].spec, 1, heads),
+           "wk": tp.take(mesh, p["wk"], decls["wk"].spec, 1, kv),
+           "wv": tp.take(mesh, p["wv"], decls["wv"].spec, 1, kv),
+           "wo": tp.take(mesh, p["wo"], decls["wo"].spec, 0, heads)}
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            out[k] = tp.replicated(mesh, p[k])
+    n_kv = len(tp.kv_heads(cfg.n_heads, cfg.n_kv_heads, n,
+                           mesh.axis_index("model")))
+    return out, cfg.replace(n_heads=hl, n_kv_heads=n_kv), mesh
+
+
+# ---------------------------------------------------------------------------
 # Block-level entry point
 # ---------------------------------------------------------------------------
 def attention_train(p, x, positions, cfg: ModelConfig, *,
-                    window: int | None = None, causal: bool = True):
-    """Full-sequence attention (train / prefill)."""
+                    window: int | None = None, causal: bool = True,
+                    mesh=None):
+    """Full-sequence attention (train / prefill). On a mesh whose heads
+    divide over ``model`` (``tp_heads``) each rank computes its own heads
+    and the output projection's partial product is summed over
+    ``model``."""
+    p, cfg, mesh = tp_heads(p, cfg, mesh)
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, positions, cfg)
+    q, k, v = _qkv(p, x, positions, cfg, mesh)
     scale = cfg.head_dim ** -0.5
     if window is not None and causal:
         o = swa_attention(q, k, v, window=window, scale=scale)
     else:
         o = flash_attention(q, k, v, scale=scale, causal=causal,
                             block_k=cfg.attn_block_k)
-    o = o.reshape(B, S, cfg.q_dim)
-    return o @ p["wo"].to(cfg.cdtype)
+    o, wo = o.reshape(B, S, cfg.q_dim), p["wo"].to(cfg.cdtype)
+    return o @ wo if mesh is None else tp.row_parallel(mesh, o, wo)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import tp
 from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 
 
@@ -86,11 +87,44 @@ def _gate(act: str, u, g):
     return u * silu(g)  # swiglu
 
 
-def ffn_apply(p, x, cfg: ModelConfig):
-    h = x @ p["wi"].to(cfg.cdtype)
+def tp_ffn(p, mesh, decls):
+    """(wi, wo, mesh) of this rank's share of a gated FFN whose leaves
+    ``p`` are gathered over the data axes (``models/tp.py``), ``decls``
+    their declarations. Where d_ff divides over ``model``: wi's own
+    [gate_j | up_j] columns (one all-to-all: the stored shards cut the
+    [gate | up] concatenation straight through) and wo's stored rows, and
+    the mesh for the column-parallel product and the sum; otherwise both whole and no mesh
+    (replicated compute)."""
+    mesh = tp.tp_mesh(mesh)
+    if mesh is None:
+        return p["wi"], p["wo"], None
+    n, d_ff = mesh.size("model"), decls["wi"].shape[-1] // 2
+    if d_ff % n:
+        full = tp.whole(mesh, p, decls)
+        return full["wi"], full["wo"], None
+    f = d_ff // n
+    wi = tp.take(mesh, p["wi"], decls["wi"].spec, 1,
+                 lambda j: [tp.block(j, f), tp.block(j, f, d_ff)])
+    wo = tp.take(mesh, p["wo"], decls["wo"].spec, 0,
+                 lambda j: [tp.block(j, f)])
+    return wi, wo, mesh
+
+
+def ffn_apply(p, x, cfg: ModelConfig, *, mesh=None, decls=None):
+    """The gated FFN. On a mesh whose model axis cuts d_ff (``tp_ffn``;
+    ``decls`` default to ``ffn_decls(cfg)``'s at the mesh's sizes) each
+    rank computes its d_ff/tp columns and the partial product is summed
+    over ``model``."""
+    wi, wo = p["wi"], p["wo"]
+    if tp.tp_mesh(mesh) is not None:
+        wi, wo, mesh = tp_ffn(p, mesh, decls or ffn_decls(cfg, ax=mesh.ax))
+    else:
+        mesh = None
+    h = tp.proj(mesh, x, wi.to(cfg.cdtype))
     g, u = h.chunk(2, dim=-1)
     h = _gate(cfg.activation, u, g)
-    return h @ p["wo"].to(cfg.cdtype)
+    wo = wo.to(cfg.cdtype)
+    return h @ wo if mesh is None else tp.row_parallel(mesh, h, wo)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from . import tp
 from .common import (CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec,
                      param_specs, tree_from_leaves, tree_leaves, tree_map)
 from .layers import (chunked_softmax_xent, embed_apply, embed_decls,
@@ -179,27 +180,31 @@ def attn_block(p, x, positions, cfg: ModelConfig, *, causal=True,
                moe=False, mla=False, mesh=None):
     """Pre-norm attention (GQA/MQA, or MLA) and FFN (dense, or routed
     experts) with residuals. Returns (x, aux): the routed experts' float32
-    aux loss, 0 for a dense FFN. ``mesh`` reaches the routed experts only
-    (expert parallelism); every other op runs on the gathered weights as
-    on one device."""
+    aux loss, 0 for a dense FFN. On a ``mesh`` (``launch/dist.
+    ProcessMesh``) the routed experts are expert-parallel and, on a model
+    axis of more than one rank, the attention and the dense or shared FFN
+    split their products over it (``models/tp.py``): ``p`` holds the
+    layer's leaves gathered over the data axes only, and x and the output
+    are replicated over ``model``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mla:
-        h = mla_mod.mla_train(p["attn"], h, positions, cfg)
+        h = mla_mod.mla_train(p["attn"], h, positions, cfg, mesh=mesh)
     else:
         h = attn.attention_train(p["attn"], h, positions, cfg,
-                                 window=_window(cfg), causal=causal)
+                                 window=_window(cfg), causal=causal,
+                                 mesh=mesh)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe:
         h, aux = moe_mod.moe_ffn(p["ffn"], h, cfg, mesh=mesh)
     else:
-        h, aux = ffn_apply(p["ffn"], h, cfg), _zero(x)
+        h, aux = ffn_apply(p["ffn"], h, cfg, mesh=mesh), _zero(x)
     return x + h, aux
 
 
-def mamba_block(p, x, cfg: ModelConfig):
+def mamba_block(p, x, cfg: ModelConfig, mesh=None):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return x + ssm_mod.mamba_block(p["mix"], h, cfg)
+    return x + ssm_mod.mamba_block(p["mix"], h, cfg, mesh=mesh)
 
 
 def _zero(x):
@@ -233,29 +238,53 @@ def _positions(x):
     return torch.arange(S, device=x.device).expand(B, S)
 
 
-def _blocks(cfg: ModelConfig, x, bodies):
+def _blocks(cfg: ModelConfig, x, bodies, mesh=None):
     """Run layer bodies ``body(x) -> (x, aux)`` in order; returns (x, the
     sum of their aux). Under ``cfg.remat`` and grad each body is one
-    ``torch.utils.checkpoint``."""
+    ``torch.utils.checkpoint``. On a model axis of more than one rank
+    that cuts d_model, the residual between the bodies, which each
+    checkpoint keeps for the backward, is cut over ``model`` along d (the
+    reference's ``act_constraint``): each body gathers it at its entry
+    and keeps its own slice at its exit, and runs replicated over
+    ``model`` inside."""
     remat = cfg.remat and torch.is_grad_enabled()
+    mesh = tp.tp_mesh(mesh)
+    cut = (remat and mesh is not None
+           and x.shape[-1] % mesh.size("model") == 0)
+    if cut:
+        bodies = [_cut_residual(body, mesh) for body in bodies]
+        x = mesh.own(x, "model", -1)
     aux = _zero(x)
     for body in bodies:
         x, a = (checkpoint(body, x, use_reentrant=False) if remat
                 else body(x))
         aux = aux + a
+    if cut:
+        x = mesh.all_gather(x, "model", x.dim() - 1)
     return x, aux
+
+
+def _cut_residual(body, mesh):
+    def cut(xl):
+        x, a = body(mesh.all_gather(xl, "model", xl.dim() - 1))
+        return mesh.own(x, "model", -1), a
+    return cut
 
 
 class _Leaves:
     """The parameters a forward reads, and their gather on a mesh.
 
     Without a mesh ``full`` returns its tree as it is. On a mesh
-    (``launch/dist.ProcessMesh``) it gathers each shard over the axes
-    that cut it, as the layer bodies call it inside their checkpoint, so
-    one layer's full weights are resident at a time and the backward's
-    recompute gathers again; ``moe=True`` keeps the routed experts cut
-    over ``model`` (E/ep local experts) and gathers them over the data
-    axes only, as the reference's ``fsdp_gather``."""
+    (``launch/dist.ProcessMesh``) the layer bodies call it inside their
+    checkpoint, so one layer's weights are resident at a time and the
+    backward's recompute gathers again. On a model axis of more than one
+    rank it gathers each shard over the data axes only, as FSDP does, and
+    the layer splits its products over ``model`` (``models/tp.py``).
+    With one model rank it gathers each shard over the axes that cut it;
+    ``moe=True`` keeps the routed experts cut over ``model`` (E/ep local
+    experts) and gathers them over the data axes only, as the reference's
+    ``fsdp_gather``. ``top`` gathers a leaf outside the layer stacks
+    whole."""
 
     def __init__(self, params, cfg: ModelConfig, mesh):
         self.params, self.mesh = params, mesh
@@ -265,6 +294,8 @@ class _Leaves:
     def full(self, tree, specs, moe=False):
         if self.mesh is None:
             return tree
+        if tp.tp_mesh(self.mesh) is not None:
+            return self.mesh.gather_tree(tree, specs, ("data",))
         if not moe:
             return self.mesh.gather_tree(tree, specs)
         out = {k: self.mesh.gather_tree(v, specs[k])
@@ -274,10 +305,17 @@ class _Leaves:
             else ("data", "model")) for k, v in tree["ffn"].items()}
         return out
 
-    def top(self, name):
-        """A leaf outside the layer stacks, gathered."""
+    def shared(self, name):
+        """An unstacked layer tree (the hybrid's shared attention), as
+        ``full`` gathers a layer's."""
         return self.full(self.params[name],
                          None if self.mesh is None else self.specs[name])
+
+    def top(self, name):
+        """A leaf outside the layer stacks, gathered whole."""
+        if self.mesh is None:
+            return self.params[name]
+        return self.mesh.gather(self.params[name], self.specs[name])
 
     def layers(self, name):
         """(layer shards, their specs) of a stacked tree."""
@@ -311,27 +349,28 @@ def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
                 a, mi = _zero(h), 0
                 for ch in pat:
                     if ch == "a":
-                        h, a0 = attn_block(pl.top("shared_attn"), h,
-                                           positions, cfg)
+                        h, a0 = attn_block(pl.shared("shared_attn"), h,
+                                           positions, cfg, mesh=mesh)
                         a = a + a0
                     else:
-                        h = mamba_block(pl.full(*mambas[mi][i]), h, cfg)
+                        h = mamba_block(pl.full(*mambas[mi][i]), h, cfg,
+                                        mesh)
                         mi += 1
                 return h, a
             return body
 
-        x, aux = _blocks(cfg, x, [macro(i) for i in range(n_macro)])
+        x, aux = _blocks(cfg, x, [macro(i) for i in range(n_macro)], mesh)
     elif fam == "moe":
         dcfg = _dense_cfg(cfg)
         x, aux = _blocks(cfg, x, [
             (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, dcfg,
-                                         mla=True))
-            for ls in pl.layers("dense_layers")])
+                                         mla=True, mesh=mesh))
+            for ls in pl.layers("dense_layers")], mesh)
         x, a1 = _blocks(cfg, x, [
             (lambda h, ls=ls: attn_block(pl.full(*ls, moe=True), h,
                                          positions, cfg, moe=True, mla=True,
                                          mesh=mesh))
-            for ls in pl.layers("moe_layers")])
+            for ls in pl.layers("moe_layers")], mesh)
         aux = aux + a1
     elif fam == "encdec":
         # each decoder layer: the causal self-attention block (attention,
@@ -339,21 +378,24 @@ def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
         def dec(ls):
             def body(h):
                 lp = pl.full(*ls)
-                h, _ = attn_block(lp, h, positions, cfg)
+                h, _ = attn_block(lp, h, positions, cfg, mesh=mesh)
                 hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
                 return h + _cross_attention(lp["xattn"], hx, enc_out,
-                                            cfg), _zero(h)
+                                            cfg, mesh), _zero(h)
             return body
 
-        x, aux = _blocks(cfg, x, [dec(ls) for ls in pl.layers("dec_layers")])
+        x, aux = _blocks(cfg, x, [dec(ls) for ls in pl.layers("dec_layers")],
+                         mesh)
     elif fam == "ssm":
         x, aux = _blocks(cfg, x, [
-            (lambda h, ls=ls: (mamba_block(pl.full(*ls), h, cfg), _zero(h)))
-            for ls in pl.layers("layers")])
+            (lambda h, ls=ls: (mamba_block(pl.full(*ls), h, cfg, mesh),
+                               _zero(h)))
+            for ls in pl.layers("layers")], mesh)
     else:
         x, aux = _blocks(cfg, x, [
-            (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, cfg))
-            for ls in pl.layers("layers")])
+            (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, cfg,
+                                         mesh=mesh))
+            for ls in pl.layers("layers")], mesh)
     return rms_norm(x, pl.top("final_norm"), cfg.norm_eps), aux
 
 
@@ -384,24 +426,29 @@ def encode(params, frames, cfg: ModelConfig, mesh=None):
     positions = _positions(x)
     x, _ = _blocks(cfg, x, [
         (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, cfg,
-                                     causal=False))
-        for ls in pl.layers("enc_layers")])
+                                     causal=False, mesh=mesh))
+        for ls in pl.layers("enc_layers")], mesh)
     return rms_norm(x, pl.top("enc_final_norm"), cfg.norm_eps)
 
 
-def _cross_attention(p, x, enc_out, cfg: ModelConfig):
-    """Queries from x, keys and values from enc_out; no RoPE, no mask."""
+def _cross_attention(p, x, enc_out, cfg: ModelConfig, mesh=None):
+    """Queries from x, keys and values from enc_out; no RoPE, no mask. On
+    a mesh whose heads divide over ``model`` (``attention.tp_heads``) each
+    rank computes its own heads from column-parallel products of x and
+    enc_out, and the partial product is summed over ``model``."""
+    p, cfg, mesh = attn.tp_heads(p, cfg, mesh)
     B, S, _ = x.shape
     Se = enc_out.shape[1]
-    q = x @ p["wq"].to(cfg.cdtype)
-    k = enc_out @ p["wk"].to(cfg.cdtype)
-    v = enc_out @ p["wv"].to(cfg.cdtype)
+    q = tp.proj(mesh, x, p["wq"].to(cfg.cdtype))
+    k = tp.proj(mesh, enc_out, p["wk"].to(cfg.cdtype))
+    v = tp.proj(mesh, enc_out, p["wv"].to(cfg.cdtype))
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
     o = attn.flash_attention(q, k, v, scale=cfg.head_dim ** -0.5,
                              causal=False, block_k=cfg.attn_block_k)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(cfg.cdtype)
+    o, wo = o.reshape(B, S, cfg.q_dim), p["wo"].to(cfg.cdtype)
+    return o @ wo if mesh is None else tp.row_parallel(mesh, o, wo)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from . import tp
 from .attention import NEG_INF, flash_attention
 from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import apply_rope, rms_norm
@@ -50,24 +51,24 @@ def mla_decls(cfg: ModelConfig, stack: int | None = None, *,
     return decls
 
 
-def _queries(p, x, positions, cfg: ModelConfig):
+def _queries(p, x, positions, cfg: ModelConfig, mesh=None):
     B, S, _ = x.shape
     H, nope, rope = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     if cfg.q_lora_rank:
-        qa = x @ p["wq_a"].to(cfg.cdtype)
+        qa = tp.proj(mesh, x, p["wq_a"].to(cfg.cdtype))
         qa = rms_norm(qa, p["q_norm"], cfg.norm_eps)
         q = qa @ p["wq_b"].to(cfg.cdtype)
     else:
-        q = x @ p["wq"].to(cfg.cdtype)
+        q = tp.proj(mesh, x, p["wq"].to(cfg.cdtype))
     q = q.reshape(B, S, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
-def _latent(p, x, positions, cfg: ModelConfig):
+def _latent(p, x, positions, cfg: ModelConfig, mesh=None):
     r_kv = cfg.kv_lora_rank
-    kv = x @ p["wkv_a"].to(cfg.cdtype)
+    kv = tp.proj(mesh, x, p["wkv_a"].to(cfg.cdtype))
     c_kv, k_rope = kv[..., :r_kv], kv[..., r_kv:]
     c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
@@ -81,13 +82,39 @@ def _up(c_kv, w):
     return (c_kv @ w.reshape(r, H * D)).reshape(*c_kv.shape[:-1], H, D)
 
 
-def mla_train(p, x, positions, cfg: ModelConfig):
-    """Expanded (non-absorbed) path for full sequences, causal."""
+def tp_heads(p, cfg: ModelConfig, mesh):
+    """(leaves, config, mesh) of this rank's share of an MLA layer whose
+    leaves ``p`` are gathered over the data axes (``models/tp.py``). With
+    n_heads dividing over ``model`` every leaf that the model axis cuts is
+    cut by heads (w_uk, w_uv, wq_b or wq, wo), so the stored shard is the
+    rank's; the latent path (wkv_a, kv_norm) and the query's low-rank
+    path (wq_a, q_norm), replicated, enter over ``model``, so each rank's
+    partial work sums into their gradients; the config holds H/tp heads.
+    Otherwise every leaf whole and no mesh (replicated compute)."""
+    mesh = tp.tp_mesh(mesh)
+    if mesh is None:
+        return p, cfg, None
+    decls = mla_decls(cfg, ax=mesh.ax)
+    n = mesh.size("model")
+    if cfg.n_heads % n:
+        return tp.whole(mesh, p, decls), cfg, None
+    out = {k: v if any(e is not None and mesh.key(e) == "model"
+                       for e in decls[k].spec) else tp.replicated(mesh, v)
+           for k, v in p.items()}
+    return out, cfg.replace(n_heads=cfg.n_heads // n), mesh
+
+
+def mla_train(p, x, positions, cfg: ModelConfig, *, mesh=None):
+    """Expanded (non-absorbed) path for full sequences, causal. On a mesh
+    whose heads divide over ``model`` (``tp_heads``) each rank computes
+    its own heads and the output projection's partial product is summed
+    over ``model``."""
+    p, cfg, mesh = tp_heads(p, cfg, mesh)
     B, S, _ = x.shape
     H, nope, rope, vd = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
                          cfg.v_head_dim)
-    q_nope, q_rope = _queries(p, x, positions, cfg)
-    c_kv, k_rope = _latent(p, x, positions, cfg)
+    q_nope, q_rope = _queries(p, x, positions, cfg, mesh)
+    c_kv, k_rope = _latent(p, x, positions, cfg, mesh)
     k_nope = _up(c_kv, p["w_uk"].to(cfg.cdtype))
     v = _up(c_kv, p["w_uv"].to(cfg.cdtype))
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
@@ -97,8 +124,8 @@ def mla_train(p, x, positions, cfg: ModelConfig):
         v = torch.nn.functional.pad(v, (0, nope + rope - vd))
     o = flash_attention(q_cat, k_cat, v, scale=(nope + rope) ** -0.5,
                         causal=True, block_k=cfg.attn_block_k)
-    o = o[..., :vd].reshape(B, S, H * vd)
-    return o @ p["wo"].to(cfg.cdtype)
+    o, wo = o[..., :vd].reshape(B, S, H * vd), p["wo"].to(cfg.cdtype)
+    return o @ wo if mesh is None else tp.row_parallel(mesh, o, wo)
 
 
 def mla_decode_step(p, x, pos: int, cache, cfg: ModelConfig):

@@ -31,8 +31,9 @@ from __future__ import annotations
 
 import torch
 
+from . import tp
 from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
-from .layers import _gate
+from .layers import _gate, ffn_apply
 
 
 def moe_decls(cfg: ModelConfig, stack: int | None = None, *,
@@ -205,12 +206,17 @@ def routed_experts(x, router_w, wi, wo, cfg: ModelConfig, *, mesh=None):
 def moe_ffn(p, x, cfg: ModelConfig, *, mesh=None):
     """Routed experts (+ optional shared experts). Returns (y, aux_loss).
     On a mesh ``p["wi"]`` and ``p["wo"]`` are the rank's local experts
-    (``routed_experts``) and the shared experts' weights are whole."""
+    (``routed_experts``); the shared experts are one gated FFN, whose
+    weights are whole, or, on a model axis of more than one rank, cut
+    over it as ``layers.ffn_apply`` cuts a dense FFN."""
     routed, aux = routed_experts(x, p["router"], p["wi"], p["wo"], cfg,
                                  mesh=mesh)
     if cfg.n_shared_experts:
-        h = x @ p["shared_wi"].to(cfg.cdtype)
-        g, u = h.chunk(2, dim=-1)
-        h = _gate(cfg.activation, u, g)
-        routed = routed + h @ p["shared_wo"].to(cfg.cdtype)
+        decls = None
+        if tp.tp_mesh(mesh) is not None:
+            d = moe_decls(cfg, ax=mesh.ax)
+            decls = {"wi": d["shared_wi"], "wo": d["shared_wo"]}
+        routed = routed + ffn_apply({"wi": p["shared_wi"],
+                                     "wo": p["shared_wo"]}, x, cfg,
+                                    mesh=mesh, decls=decls)
     return routed, aux

@@ -18,6 +18,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ssd as ssd_kernel
+from . import tp
 from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import rms_norm, silu
 
@@ -47,8 +48,8 @@ def ssm_decls(cfg: ModelConfig, stack: int | None = None, *,
     }
 
 
-def _split_in(h, cfg: ModelConfig):
-    di, N = cfg.d_inner, cfg.ssm_state
+def _split_in(h, cfg: ModelConfig, di: int | None = None):
+    di, N = di or cfg.d_inner, cfg.ssm_state
     z = h[..., :di]
     xBC = h[..., di: 2 * di + 2 * N]
     dt = h[..., 2 * di + 2 * N:]
@@ -76,13 +77,72 @@ def ssd_chunked(x, dt, B, C, A_log, D, *, chunk: int, init_state=None):
                                   init_state=init_state)
 
 
-def mamba_block(p, x, cfg: ModelConfig):
+def tp_mixer(p, cfg: ModelConfig, mesh):
+    """(leaves, local SSM heads, mesh) of this rank's share of a Mamba2
+    mixer whose leaves ``p`` are gathered over the data axes
+    (``models/tp.py``). Where the SSM heads divide over ``model`` the rank
+    computes its H/tp heads: in_proj's [z_j | x_j | B | C | dt_j] columns
+    (one all-to-all, or slices of a leaf that ``model`` does not cut),
+    conv_w/conv_b's channels of x_j, B and C, and its slices of A_log, D,
+    dt_bias and norm, each replicated leaf entering over ``model`` first;
+    out_proj's stored rows. Otherwise every leaf whole, H, and no mesh
+    (replicated compute)."""
+    mesh = tp.tp_mesh(mesh)
+    H = cfg.ssm_heads
+    if mesh is None:
+        return p, H, None
+    decls = ssm_decls(cfg, ax=mesh.ax)
+    n = mesh.size("model")
+    if H % n:
+        return tp.whole(mesh, p, decls), H, None
+    di, N, hl = cfg.d_inner, cfg.ssm_state, H // n
+    f = di // n
+
+    def conv(j):
+        return [tp.block(j, f), (di, di + 2 * N)]
+
+    ranges = {"in_proj": lambda j: [tp.block(j, f), tp.block(j, f, di),
+                                    (2 * di, 2 * di + 2 * N),
+                                    tp.block(j, hl, 2 * di + 2 * N)],
+              "conv_w": conv, "conv_b": conv,
+              "A_log": lambda j: [tp.block(j, hl)],
+              "D": lambda j: [tp.block(j, hl)],
+              "dt_bias": lambda j: [tp.block(j, hl)],
+              "norm": lambda j: [tp.block(j, f)],
+              "out_proj": lambda j: [tp.block(j, f)]}
+    dims = {"in_proj": 1, "conv_w": 1, "out_proj": 0}
+    return {k: tp.take(mesh, v, decls[k].spec, dims.get(k, 0), ranges[k])
+            for k, v in p.items()}, hl, mesh
+
+
+def _gated_norm(y, z, scale, cfg: ModelConfig, mesh=None):
+    """RMSNorm of y * silu(z) over the whole d_inner. With ``mesh`` y and
+    z hold this rank's d_inner/tp features: the sum of squares is summed
+    over ``model`` (both ways: each rank's scale reads it) before the
+    scale."""
+    g = y * silu(z.float()).to(y.dtype)
+    if mesh is None:
+        return rms_norm(g, scale, cfg.norm_eps)
+    gf = g.float()
+    var = mesh.allsum(gf.square().sum(dim=-1, keepdim=True),
+                      "model") / cfg.d_inner
+    return (gf * torch.rsqrt(var + cfg.norm_eps)
+            * scale.float()).to(g.dtype)
+
+
+def mamba_block(p, x, cfg: ModelConfig, *, mesh=None):
     """Full Mamba2 mixer. x (B, L, d_model) -> (B, L, d_model). x, B and C
-    reach the scan as strided views of the conv output."""
+    reach the scan as strided views of the conv output. On a mesh whose
+    SSM heads divide over ``model`` (``tp_mixer``) each rank scans its
+    own heads against the whole of B and C, the gated norm sums its
+    squares over ``model``, and out_proj's partial product is summed over
+    ``model``."""
+    p, H, mesh = tp_mixer(p, cfg, mesh)
     Bsz, L, _ = x.shape
-    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    h = x @ p["in_proj"].to(cfg.cdtype)
-    z, xBC, dt = _split_in(h, cfg)
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
+    di = H * Pd
+    h = tp.proj(mesh, x, p["in_proj"].to(cfg.cdtype))
+    z, xBC, dt = _split_in(h, cfg, di)
     xBC, _ = _causal_conv(xBC, p["conv_w"].to(cfg.cdtype),
                           p["conv_b"].to(cfg.cdtype))
     xs = xBC[..., :di].reshape(Bsz, L, H, Pd)
@@ -91,9 +151,9 @@ def mamba_block(p, x, cfg: ModelConfig):
     dt = dt + p["dt_bias"].to(dt.dtype)
     y, _ = ssd_chunked(xs, dt, Bmat, Cmat, p["A_log"], p["D"],
                        chunk=cfg.ssm_chunk)
-    y = y.reshape(Bsz, L, di)
-    y = rms_norm(y * silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(cfg.cdtype)
+    y = _gated_norm(y.reshape(Bsz, L, di), z, p["norm"], cfg, mesh)
+    w = p["out_proj"].to(cfg.cdtype)
+    return y @ w if mesh is None else tp.row_parallel(mesh, y, w)
 
 
 def mamba_decode_step(p, x, cache, cfg: ModelConfig):

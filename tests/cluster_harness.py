@@ -204,6 +204,20 @@ def replay(sc: Scenario, r: Run, tmp_path, **kw) -> Run:
 
 
 TORCH_CPU = dict(backend="torch", backend_kw={"device": "cpu"})
+#: benchmarks/scenario_matrix.py:48-52, with SLOs
+TENANTS_SLO = "gold:0:1:2.5,bronze:2:9:15"
+
+
+def delivered_nothing_cancelled(r) -> None:
+    """No cancelled batch's report reached the controller: nothing is left
+    pending there or held in a live worker's outbox after the drain."""
+    ctrl = r.cluster.controller
+    assert ctrl._pending == {}
+    for link in ctrl.links.values():
+        if link.alive:
+            assert link.peer._held == []
+
+
 def kill_scenario(t=6.0, **kw):
     from repro.cluster import ClusterEvent
     return Scenario(script=(ClusterEvent(t, "kill", "w1"),), **kw)

@@ -9,14 +9,23 @@ the test on one numpy input file:
       4 CPU processes on a (2, 2) mesh, one torch thread each, and one
       world of 1 process on a (1, 1) mesh
 
-IN is a pickle of the numpy parameters and batches of each case; OUT a
-pickle of the losses, gradients, updated parameters and AdamW states,
-whole (the port's gathered over the groups that cut each leaf), the
-prefill step's last-position logits of each case (the port's rows
-gathered over data), and, on the port's side, the collectives that the
-first train step of each ``TRAIN`` case counted (``repro_torch.tally``,
-by group and kind). Every model copy is float32 with ``fsdp=True``
-(``case_config``).
+IN is a pickle of the numpy parameters and batches of each case, and of
+two checkpoint directories (``"ckpt"``); OUT a pickle of the losses,
+gradients, updated parameters and AdamW states, whole (the port's
+gathered over the groups that cut each leaf), the prefill step's
+last-position logits of each case (the port's rows gathered over data),
+and, on the port's side, the collectives that the first train step of
+each ``TRAIN`` case counted (``repro_torch.tally``, by group and kind),
+each rank's ``FlopCounterMode`` FLOPs of its loss and gradients, and the
+leaves it gathered over ``model``. Every model copy is float32 with
+``fsdp=True`` (``case_config``).
+
+Checkpoints cross between the two sides: the reference saves the
+``CKPT_CASE`` state after its train steps with its ``save_pytree`` into
+``ckpt["ref"]``, which the port's (2, 2) world restores; the port's world
+saves its own state of that case (``Checkpointer`` on the mesh) into
+``ckpt["port"]``, which the test restores with the reference's
+``restore_pytree``.
 """
 import contextlib
 import os
@@ -31,16 +40,20 @@ sys.path.insert(0, str(REPO / "src"))
 
 # (name: arch): the vp loss, the routed experts with their aux, the train
 # step, the hybrid family's shared attention gathered at each use, the
-# encoder, the vlm prefix, the int8 AdamW state
+# encoder, the vlm prefix, the int8 AdamW state, GQA with qk-norm (qwen3:
+# 4 query heads over 2 KV heads, one KV head a model rank). At tp 2 every
+# layer splits its products over model (models/tp.py); gemma's and
+# paligemma's one KV head is taken by both model ranks.
 CASES = {"gemma": "gemma-2b", "deepseek": "deepseek-v3-671b",
          "mamba2": "mamba2-780m", "zamba2": "zamba2-7b",
          "seamless": "seamless-m4t-large-v2", "paligemma": "paligemma-3b",
-         "gemma_int8": "gemma-2b"}
+         "gemma_int8": "gemma-2b", "qwen3": "qwen3-8b"}
 # the cases that run the train step (the others the loss and its
 # gradients), STEPS steps on one batch: the first runs at learning rate 0
 # (the warmup's start), the second reads the moments the first wrote
 TRAIN = ("mamba2", "gemma_int8")
 STEPS = 2
+CKPT_CASE = "gemma_int8"     # float32 params, int8 moments in global blocks
 B, S = 4, 64
 TIE_ULPS = 256       # tests/test_torch_zoo.py's near-tie margin
 
@@ -89,6 +102,7 @@ def run_ref(inp):
     import jax
     import jax.numpy as jnp
     import repro.configs as configs
+    from repro.checkpoint import save_pytree
     from repro.launch.mesh import make_mesh
     from repro.launch.steps import make_prefill_step, make_train_step
     from repro.models import axis_env_for_mesh, lm_loss, model_decls
@@ -119,6 +133,9 @@ def run_ref(inp):
             res = {"loss": tuple(float(m["loss"]) for m in ms),
                    "grad_norm": tuple(float(m["grad_norm"]) for m in ms),
                    "params": params, "state": opt}
+            if name == CKPT_CASE:
+                save_pytree({"opt": opt, "params": params, "step": STEPS},
+                            inp["ckpt"]["ref"], STEPS)
         else:
             loss, grads = jax.jit(jax.value_and_grad(
                 lambda p: lm_loss(p, batch, cfg, ax, mesh)))(params)
@@ -162,8 +179,62 @@ def collectives(pm):
     return out
 
 
-def _port_case(pm, name, inp):
+# what each rank of the axis asks of a 6-column leaf cut 3 and 3 (``take``)
+TAKE_RANGES = (((4, 6), (0, 1)), ((1, 5), (2, 4)))
+
+
+def tp_collectives(pm):
+    """``take``, ``allsum`` and ``own`` forward and gradient over each
+    axis, on x_r = rank + (0, 1, 2) * 0.5 (``own`` on x_r and 1 + x_r,
+    six values) against a cotangent weight c_r = 1 + rank * (1, ..., 9):
+    every sum shows which ranks it took."""
     import torch
+    r = float(pm.rank)
+    c = 1 + r * torch.arange(1.0, 10.0)
+    out = {}
+    for axis in ("data", "model"):
+        for name, fn in (
+                ("take", lambda x: pm.take(x, axis, 0, TAKE_RANGES)),
+                ("allsum", lambda x: pm.allsum(x, axis)),
+                ("own", lambda x: pm.own(torch.cat([x, 1 + x]), axis, 0))):
+            x = (r + torch.tensor([0.0, 0.5, 1.0])).requires_grad_(True)
+            y = fn(x)
+            (y * c[:y.numel()]).sum().backward()
+            out[f"{name}/{axis}"] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+@contextlib.contextmanager
+def model_gathers(pm, params):
+    """The paths of the parameter leaves that ``ProcessMesh.gather`` takes
+    over ``model`` inside the block (a leaf gathered over data first is
+    followed to its model gather)."""
+    from repro_torch.launch import dist
+    from repro_torch.models.common import tree_leaves
+    path_of = {t.untyped_storage().data_ptr(): p
+               for p, t in tree_leaves(params)}
+    via, seen, gather = {}, [], dist.ProcessMesh.gather
+
+    def recording(self, t, spec, axes=(dist.DATA, dist.MODEL)):
+        path = via.get(id(t), path_of.get(t.untyped_storage().data_ptr()))
+        out = gather(self, t, spec, axes)
+        if dist.MODEL in axes and dist.MODEL in self.spec_axes(spec):
+            seen.append(path)
+        elif path is not None:
+            via[id(out)] = path
+        return out
+
+    dist.ProcessMesh.gather = recording
+    try:
+        yield seen
+    finally:
+        dist.ProcessMesh.gather = gather
+
+
+def _port_case(pm, name, inp, ckpt):
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch import configs, tally
     from repro_torch.launch.dist import local_shape
     from repro_torch.launch.steps import make_prefill_step, make_train_step
@@ -190,11 +261,14 @@ def _port_case(pm, name, inp):
         ms = []
         for i in range(STEPS):
             with (tally.counting() if i == 0 else contextlib.nullcontext()
-                  ) as counted:
+                  ) as counted, model_gathers(pm, params) as seen:
                 params, opt, m = step(params, opt, batch)
             if i == 0:
                 res["tally"] = pm.collectives_by_axis(counted)
+                res["model_gathers"] = seen
             ms.append(m)
+        if name == CKPT_CASE:
+            res.update(_checkpoints(pm, cfg, ocfg, params, opt, ckpt))
         sdecls = dict(tree_leaves(opt_state_decls(decls, ocfg)))
         with torch.no_grad():
             state = tree_map(lambda t, d: pm.gather(t, d.spec), opt,
@@ -227,10 +301,13 @@ def _port_case(pm, name, inp):
         try:
             for _, t in tree_leaves(params):
                 t.requires_grad_(True)
-            loss = lm.lm_loss(params, batch, cfg, mesh=pm)
-            loss.backward()
+            with FlopCounterMode(display=False) as fc, \
+                    model_gathers(pm, params) as seen:
+                loss = lm.lm_loss(params, batch, cfg, mesh=pm)
+                loss.backward()
         finally:
             pmoe.route, dist.ProcessMesh.pmax = route, pmax
+        res.update(flops=fc.get_total_flops(), model_gathers=seen)
         grads = tree_map(lambda t: t.grad, params)
         res.update(loss=float(loss), router_margin_ulps=margins,
                    vp_pmax_calls=len(pmax_calls),
@@ -241,6 +318,34 @@ def _port_case(pm, name, inp):
     return res
 
 
+def _checkpoints(pm, cfg, ocfg, params, opt, ckpt):
+    """The port's state saved on the mesh (rank 0 writes), and the
+    reference's checkpoint restored into this rank's shards: each
+    restored leaf's dtype, device and local shape against the template's,
+    and the whole restored tree gathered."""
+    from repro_torch.checkpoint import Checkpointer, gathered_leaves
+    from repro_torch.models import lm
+    from repro_torch.models.common import param_specs, tree_leaves
+    from repro_torch.optim import opt_state_decls
+    decls = lm.model_decls(cfg, pm.ax)
+    specs = {"opt": param_specs(opt_state_decls(decls, ocfg)),
+             "params": param_specs(decls), "step": ()}
+    tree = {"opt": opt, "params": params, "step": STEPS}
+    Checkpointer(ckpt["port"], mesh=pm, specs=specs).save(tree, STEPS,
+                                                          blocking=True)
+    got, step = Checkpointer(ckpt["ref"], mesh=pm, specs=specs
+                             ).restore_latest({**tree, "step": 0})
+    like = {p: (t.dtype, t.device, tuple(t.shape))
+            for p, t in tree_leaves(tree) if hasattr(t, "dtype")}
+    return {"ref_ckpt_step": step,
+            "ref_ckpt_like_template": all(
+                (t.dtype, t.device, tuple(t.shape)) == like[p]
+                for p, t in tree_leaves(got) if p in like),
+            "ref_ckpt": {p: np.asarray(t.numpy() if hasattr(t, "numpy")
+                                       else t)
+                         for p, t in gathered_leaves(got, specs, pm)}}
+
+
 def _rows(batch) -> int:
     return batch["tokens"].shape[0]
 
@@ -248,13 +353,14 @@ def _rows(batch) -> int:
 def port_rank(pm, inp):
     import torch
     torch.set_num_threads(1)
-    out = {"collectives": collectives(pm)}
+    out = {"collectives": collectives(pm),
+           "tp_collectives": tp_collectives(pm)}
     for name in CASES:
-        out[name] = _port_case(pm, name, inp[name])
+        out[name] = _port_case(pm, name, inp[name], inp["ckpt"])
     # B 3 does not divide over the 2 data ranks: the batch is replicated
     three = {**inp["gemma"], "batch": {k: v[:3] for k, v in
                                         inp["gemma"]["batch"].items()}}
-    out["gemma_rows3"] = _port_case(pm, "gemma", three)
+    out["gemma_rows3"] = _port_case(pm, "gemma", three, inp["ckpt"])
     return out
 
 

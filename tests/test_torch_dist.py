@@ -9,7 +9,8 @@ how each side runs). Every model copy is float32 with ``fsdp=True`` on the
 same seeded numpy parameters:
 
   * every collective's forward and gradient against whole-tensor sums,
-    over data and over model;
+    over data and over model, those of tensor parallelism too (``take``'s
+    all-to-all, ``allsum``, ``own``);
   * gemma-2b smoke (vocab 512): the vocab-parallel loss and its gradients
     against the reference's vp path, and against the port's unsharded
     loss;
@@ -18,9 +19,15 @@ same seeded numpy parameters:
     against the reference, under the near-tie rule of
     tests/test_torch_zoo.py;
   * zamba2 (the shared attention block gathered at each use), seamless
-    (the encoder, the frames cut over data) and paligemma (the prefix,
-    ``vision_proj``): loss and gradients against the reference, and
-    against the port's unsharded loss;
+    (the encoder, the frames cut over data), paligemma (the prefix,
+    ``vision_proj``) and qwen3-8b (GQA, qk-norm, one KV head a model
+    rank): loss and gradients against the reference, and against the
+    port's unsharded loss;
+  * tensor parallelism over ``model`` (``models/tp.py``) in every case:
+    each model rank's FLOPs of the loss and its gradients within 1.3x of
+    the unsharded step's on its rows over tp (gemma, qwen3), and no leaf
+    of a layer gathered over ``model`` (each layer's heads, d_ff and SSM
+    heads divide at tp 2);
   * mamba2-780m smoke: two ``make_train_step`` steps over two
     microbatches against the reference's jitted ``make_train_step(cfg,
     ax, mesh)``: losses, ``grad_norm``s and every updated parameter,
@@ -29,7 +36,14 @@ same seeded numpy parameters:
   * a (1, 1) world: the mesh path's train step equal to the unsharded one
     bit for bit;
   * ``launch/train.py --mesh 2x2 --device cpu``: the loss lines of
-    ``--mesh 1x1``;
+    ``--mesh 1x1``; with ``--ckpt-dir``, a run stopped after its step-2
+    checkpoint and restarted replays an uninterrupted run's step-4 line
+    and its step-4 checkpoint bit for bit, and the checkpoint restores on
+    one device through ``train``;
+  * checkpoints crossing: gemma-2b's int8 state saved by the reference's
+    ``save_pytree`` restores on the (2, 2) world, and the world's own
+    saved state restores in the reference's ``restore_pytree``, every
+    leaf equal, the int8 codes and scales included;
   * every case's prefill step on the mesh (``make_prefill_step(mesh=)``)
     against the reference's ``make_prefill_step`` on its (2, 2) mesh;
   * the dry run (``launch/dryrun.py``): the collectives that one rank of
@@ -74,6 +88,14 @@ PREFILL_TOL = 1e-4
 TIMEOUT = 300                     # seconds for each of the subprocesses
 CLI = ["-m", "repro_torch.launch.train", "--arch", "qwen3-4b", "--smoke",
        "--steps", "2", "--device", "cpu", "--mesh"]
+# the checkpointed runs on (2, 2): (steps, directory); the restart reuses
+# the stopped run's directory
+CKPT_CLI = ["-m", "repro_torch.launch.train", "--arch", "qwen3-4b",
+            "--smoke", "--device", "cpu", "--mesh", "2x2", "--ckpt-every",
+            "2"]
+CKPT_RUNS = {"whole": (5, "whole"), "stopped": (3, "cut"),
+             "restarted": (5, "cut")}
+FLOPS_SHARE = 1.3
 
 
 def _inputs():
@@ -98,12 +120,13 @@ def _inputs():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The reference, the port's two worlds and the two CLI runs, as
+    """The reference, the port's two worlds and the five CLI runs, as
     subprocesses one after another (one at a time keeps the burst of
     processes small beside the other test workers), each under
     ``TIMEOUT``."""
     d = tmp_path_factory.mktemp("dist")
     inp = _inputs()
+    inp["ckpt"] = {side: str(d / f"ckpt_{side}") for side in ("ref", "port")}
     with open(d / "in.pkl", "wb") as f:
         pickle.dump(inp, f)
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -113,7 +136,10 @@ def runs(tmp_path_factory):
     cmds = {side: [harness, side, str(d / "in.pkl"), str(d / f"{side}.pkl")]
             for side in ("ref", "port")}
     cmds.update({m: CLI + [m] for m in ("2x2", "1x1")})
-    out = {"inputs": inp}
+    cmds.update({k: CKPT_CLI + ["--steps", str(n), "--ckpt-dir",
+                                str(d / sub)]
+                 for k, (n, sub) in CKPT_RUNS.items()})
+    out = {"inputs": inp, "dir": d}
     for k, c in cmds.items():
         r = subprocess.run([sys.executable, "-W", "ignore", *c], env=env,
                            cwd=REPO, text=True, capture_output=True,
@@ -177,6 +203,41 @@ def test_collectives_forward_and_gradient(runs, axis):
         assert not needs_grad
 
 
+@pytest.mark.parametrize("axis", ["data", "model"])
+def test_tp_collectives_forward_and_gradient(runs, axis):
+    """``take`` (one all-to-all of asked columns, overlapping and
+    repeated; its backward adds each rank's cotangent into the owner's
+    columns), ``allsum`` (a sum whose backward sums) and ``own`` (the
+    rank's slice of a replicated tensor; its backward gathers), as
+    tests/dist_harness.py's ``tp_collectives`` runs them, against sums
+    over the rank's group."""
+    x = [r + np.array([0.0, 0.5, 1.0]) for r in range(4)]
+    c = [1 + r * np.arange(1.0, 10.0) for r in range(4)]
+    for r, res in enumerate(runs["port"]["2x2"]):
+        col = res["tp_collectives"]
+        g = GROUPS[axis](r)
+        i = g.index(r)
+        full = np.concatenate([x[k] for k in g])
+        taken = [np.concatenate([np.arange(a, b) for a, b in rj])
+                 for rj in dh.TAKE_RANGES]
+        grad = np.zeros(6)
+        for j, cols in enumerate(taken):
+            np.add.at(grad, cols, c[g[j]][:len(cols)])
+        want = {"take": (full[taken[i]], grad[3 * i:3 * i + 3]),
+                "allsum": (sum(x[k] for k in g),
+                           sum(c[k][:3] for k in g)),
+                # own: the rank's 3 of (x_r, 1 + x_r); the ranks'
+                # cotangents of their slices, gathered, reach both halves
+                "own": (np.concatenate([x[r], 1 + x[r]])[3 * i:3 * i + 3],
+                        sum(c[k][:3] for k in g))}
+        for name, (fwd, grad_want) in want.items():
+            got_f, got_g = col[f"{name}/{axis}"]
+            np.testing.assert_allclose(got_f, fwd, rtol=0, atol=1e-6,
+                                       err_msg=name)
+            np.testing.assert_allclose(got_g, grad_want, rtol=0, atol=1e-6,
+                                       err_msg=name)
+
+
 def test_vocab_parallel_loss_matches_reference(runs):
     """gemma-2b (tied embeddings, V 512 cut over model): the vp path on
     every rank against the reference's vp path on its (2, 2) mesh, and
@@ -209,12 +270,12 @@ def _unsharded(runs, name, rows):
                                   for k, t in tree_leaves(tp)}
 
 
-OTHER_FAMILIES = ["zamba2", "seamless", "paligemma"]
+OTHER_FAMILIES = ["zamba2", "seamless", "paligemma", "qwen3"]
 
 
 @pytest.mark.parametrize("name", OTHER_FAMILIES)
 def test_other_families_match_reference(runs, name):
-    """zamba2, seamless and paligemma on every rank against the
+    """zamba2, seamless, paligemma and qwen3 on every rank against the
     reference's loss and gradients on its own (2, 2) mesh."""
     ref = runs["ref"][name]
     for r in _ranks(runs, name):
@@ -225,8 +286,9 @@ def test_other_families_match_reference(runs, name):
 @pytest.mark.parametrize("name", OTHER_FAMILIES)
 def test_other_families_match_the_unsharded_port(runs, name):
     """zamba2 (the shared attention block gathered at each of its uses),
-    seamless (the encoder's layers, the frames cut over data) and
-    paligemma (the prefix embeddings cut over data, vision_proj): the
+    seamless (the encoder's layers, the frames cut over data), paligemma
+    (the prefix embeddings cut over data, vision_proj) and qwen3 (q_norm
+    and k_norm replicated over model, each rank its own KV head): the
     loss and gradients of the unsharded port, itself held to the
     reference by tests/test_torch_train.py."""
     ranks = _ranks(runs, name)
@@ -234,6 +296,53 @@ def test_other_families_match_the_unsharded_port(runs, name):
     for r in ranks:
         assert r["loss"] == pytest.approx(loss, rel=LOSS_RTOL)
         _hold_grads(r["grads"], grads)
+
+
+def _unsharded_flops(runs, name, rows):
+    """FlopCounterMode's FLOPs of the port's unsharded loss and its
+    gradients on the first ``rows`` rows of the case's batch."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = dh.case_config(tconfigs, name)
+    inp = runs["inputs"][name]
+    tp = lm.lm_params_from_numpy(tree_from_leaves(lm.model_decls(cfg),
+                                                  inp["params"]), cfg,
+                                 device="cpu")
+    for _, t in tree_leaves(tp):
+        t.requires_grad_(True)
+    with FlopCounterMode(display=False) as fc:
+        lm.lm_loss(tp, {k: torch.from_numpy(v[:rows]) for k, v in
+                        inp["batch"].items()}, cfg).backward()
+    return fc.get_total_flops()
+
+
+@pytest.mark.parametrize("name", ["gemma", "qwen3"])
+def test_model_rank_flops_are_the_unsharded_over_tp(runs, name):
+    """Each rank of (2, 2) computes its data shard's rows (B/2) on its
+    model rank's heads and FFN columns: its FLOPs of the loss and the
+    gradients within ``FLOPS_SHARE`` of the unsharded step's on B/2 rows
+    over tp = 2 (at least the share itself: replicated compute would
+    give 2x). gemma's one KV head is projected on both model ranks."""
+    want = _unsharded_flops(runs, name, dh.B // 2) / 2
+    for r in _ranks(runs, name):
+        assert want <= r["flops"] <= FLOPS_SHARE * want, (r["flops"], want)
+
+
+@pytest.mark.parametrize("name", list(dh.CASES))
+def test_no_layer_leaf_is_gathered_over_model(runs, name):
+    """At tp 2 every layer of every case splits its products over
+    ``model``: a layer's leaves are gathered over the data axes only (the
+    rank's own columns come from the stored shard or ``take``'s
+    all-to-all), so the only leaves gathered over ``model`` are those
+    outside the layer stacks that the forward reads whole (the
+    embedding)."""
+    stacks = ("layers", "dense_layers", "moe_layers", "shared_attn",
+              "enc_layers", "dec_layers", "mamba")
+    for r in _ranks(runs, name):
+        assert None not in r["model_gathers"]
+        bad = [p for p in r["model_gathers"]
+               if p.split("']")[0].strip("['").startswith(stacks)]
+        assert not bad, bad
+        assert "['embedding']" in r["model_gathers"]
 
 
 def test_a_batch_that_does_not_divide_is_replicated(runs):
@@ -371,6 +480,100 @@ def test_train_cli_mesh_matches_one_device(runs):
         assert g4 == pytest.approx(g1, rel=LOSS_RTOL)
 
 
+def _ckpt_tree(runs, cfg, params, state):
+    """The nested {"opt", "params", "step"} tree of flat (path -> array)
+    parameters and AdamW state of ``cfg``, as one device's tree."""
+    from repro_torch.optim import AdamWConfig, opt_state_decls
+    decls = lm.model_decls(cfg)
+    odecls = opt_state_decls(decls, AdamWConfig(
+        state_dtype=cfg.opt_state_dtype))
+    return {"opt": tree_from_leaves(odecls, state),
+            "params": tree_from_leaves(decls, params), "step": dh.STEPS}
+
+
+def test_reference_checkpoint_restores_on_the_mesh(runs):
+    """The reference's ``save_pytree`` of gemma-2b's state after its two
+    train steps (float32 parameters and moments' scales, int8 codes, the
+    int32 step), restored on every rank of the (2, 2) world into its
+    shards (each leaf in the template's dtype, device and local shape)
+    and gathered: every leaf equal to the reference's."""
+    ref = runs["ref"][dh.CKPT_CASE]
+    want = {f"['params']{k}": v for k, v in ref["params"].items()}
+    want.update({f"['opt']{k}": v for k, v in ref["state"].items()})
+    for r in _ranks(runs, dh.CKPT_CASE):
+        assert r["ref_ckpt_step"] == dh.STEPS
+        assert r["ref_ckpt_like_template"]
+        got = r["ref_ckpt"]
+        assert int(got.pop("['step']")) == dh.STEPS
+        assert got.keys() == want.keys()
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype, k
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+def test_mesh_checkpoint_restores_in_the_reference(runs):
+    """The (2, 2) world's own checkpoint of the same case, written by
+    rank 0 one gathered leaf at a time, restored by the reference's
+    ``restore_pytree`` in this process: every leaf equal to the world's
+    gathered state, the int8 moments' codes (the padded full rows) and
+    scales (the full rows') included."""
+    from repro import checkpoint as ref_ckpt
+    cfg = dh.case_config(tconfigs, dh.CKPT_CASE)
+    r = _ranks(runs, dh.CKPT_CASE)[0]
+    tree = _ckpt_tree(runs, cfg, r["params"], r["state"])
+    out = ref_ckpt.restore_pytree(tree, runs["inputs"]["ckpt"]["port"],
+                                  dh.STEPS)
+    got, want = dict(tree_leaves(out)), dict(tree_leaves(tree))
+    assert got.keys() == want.keys()
+    assert any(k.endswith("['codes']") for k in want)
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        assert g.dtype == np.asarray(w).dtype, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_train_cli_mesh_restart_replays_bit_for_bit(runs):
+    """``launch/train.py --mesh 2x2 --ckpt-dir``: a run stopped after its
+    step-2 checkpoint, restarted to step 5, resumes from step 2 and
+    replays the uninterrupted run: the step-4 line (loss and grad norm)
+    and the step-4 checkpoint, parameters and AdamW state, bit for
+    bit."""
+    d = runs["dir"]
+    assert "resumed from committed step 2" in runs["restarted"]
+    assert "resumed" not in runs["whole"] + runs["stopped"]
+    whole_lines = dict((s, (l, g)) for s, l, g in _loss_lines(runs["whole"]))
+    again = dict((s, (l, g)) for s, l, g in _loss_lines(runs["restarted"]))
+    assert sorted(again) == [4] and again[4] == whole_lines[4]
+    whole, cut = d / "whole" / "step_00000004", d / "cut" / "step_00000004"
+    files = sorted(p.name for p in whole.glob("arr_*.npy"))
+    assert files and files == sorted(p.name for p in cut.glob("arr_*.npy"))
+    assert (cut / "COMMIT").exists()
+    for f in files:
+        a, b = np.load(whole / f), np.load(cut / f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+def test_mesh_checkpoint_restores_on_one_device(runs, tmp_path):
+    """The mesh run's step-2 checkpoint, alone in a directory, restores
+    through ``train`` on one device (the CLI's qwen3-4b smoke config and
+    sizes): it resumes at step 3 and holds every saved leaf, parameters
+    and AdamW state, in the one-device layout."""
+    import shutil
+    from repro_torch.launch import train
+    src = runs["dir"] / "cut" / "step_00000002"
+    shutil.copytree(src, tmp_path / src.name)
+    res = train.train(tconfigs.get_smoke("qwen3-4b"), steps=3,
+                      ckpt_dir=tmp_path, device="cpu")
+    assert res.start == 3 and not res.losses
+    leaves = list(tree_leaves({"opt": res.opt, "params": res.params,
+                               "step": 0}))
+    for i, (p, t) in enumerate(leaves[:-1]):
+        saved = np.load(src / f"arr_{i}.npy")
+        got = t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        assert got.shape == saved.shape and np.array_equal(got, saved), p
+    assert int(np.load(src / f"arr_{len(leaves) - 1}.npy")) == 2
+
+
 def test_launch_reports_a_failing_rank():
     with pytest.raises(RuntimeError,
                        match=r"(?s)rank 1 of mesh .*rank one fails"):
@@ -401,17 +604,28 @@ def test_launch_under_torchrun_runs_this_rank():
     assert r.stdout.strip() == "[0]"
 
 
-def test_no_fallback():
+def test_no_fallback(tmp_path):
     """More slots than cards raises (the mesh names no CPU); a checkpoint
-    directory with --mesh raises with its reason."""
-    from repro_torch.launch import train
+    whose leaves do not cut into a rank's shards raises with its reason
+    (a (3,) leaf over 2 model ranks; a saved leaf of another shape), as
+    does a mesh checkpointer without specs."""
+    from repro_torch.checkpoint import (Checkpointer, restore_pytree,
+                                        save_pytree)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     with pytest.raises(RuntimeError, match="CUDA device"):
         dist.launch(dh.raises_on_rank_one, (1, have + 1),
                     ("data", "model"))
-    with pytest.raises(ValueError, match="sharded checkpoint"):
-        train.main(["--arch", "qwen3-4b", "--smoke", "--mesh", "2x2",
-                    "--device", "cpu", "--ckpt-dir", "/nonexistent"])
+    save_pytree({"w": torch.ones(3)}, tmp_path, 1)
+    rank = dist.ProcessMesh(None, AxisEnv(sizes={"data": 1, "model": 2}), 0,
+                            {"data": 0, "model": 1}, torch.device("cpu"), {})
+    with pytest.raises(ValueError, match="does not divide"):
+        restore_pytree({"w": torch.zeros(1)}, tmp_path, 1,
+                       specs={"w": ("model",)}, mesh=rank)
+    with pytest.raises(ValueError, match="saved shape"):
+        restore_pytree({"w": torch.zeros(1)}, tmp_path, 1,
+                       specs={"w": (None,)}, mesh=rank)
+    with pytest.raises(ValueError, match="mesh and specs"):
+        Checkpointer(tmp_path, mesh=rank)
 
 
 def test_ax_must_be_the_mesh_axes():

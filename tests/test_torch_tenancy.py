@@ -20,14 +20,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from replay_harness import Scenario
-from cluster_harness import (TORCH_CPU, _cli, _minus,
-                             assert_same_as_reference, pkg, replay)
+from cluster_harness import (TENANTS_SLO, TORCH_CPU, _cli, _minus,
+                             assert_same_as_reference,
+                             delivered_nothing_cancelled, pkg)
 
 REPO = Path(__file__).resolve().parent.parent
 ROOTS = ("repro", "repro_torch")
 #: benchmarks/scenario_matrix.py:48-52
 TENANTS = "gold:0:1,bronze:2:3"
-TENANTS_SLO = "gold:0:1:2.5,bronze:2:9:15"
 
 
 def both(fn):
@@ -216,16 +216,6 @@ def test_tenanted_arrivals_match_reference_sample_for_sample():
 # ---------------------------------------------------------------------------
 # end to end: tenanted cluster runs through both packages
 # ---------------------------------------------------------------------------
-def _delivered_nothing_cancelled(r) -> None:
-    """No cancelled batch's report reached the controller: nothing is left
-    pending there or held in a live worker's outbox after the drain."""
-    ctrl = r.cluster.controller
-    assert ctrl._pending == {}
-    for link in ctrl.links.values():
-        if link.alive:
-            assert link.peer._held == []
-
-
 @pytest.mark.parametrize("backend", ["analytic", "torch"])
 def test_preemption_drains_without_dropping_matches_reference(backend,
                                                               tmp_path):
@@ -239,7 +229,7 @@ def test_preemption_drains_without_dropping_matches_reference(backend,
     assert port.snap.preempted_requests > 0
     assert port.snap.dropped == 0
     assert "preempt" in port.cluster.events.kinds()
-    _delivered_nothing_cancelled(port)
+    delivered_nothing_cancelled(port)
 
 
 def test_per_tenant_slo_accounting_matches_reference(tmp_path):
@@ -272,30 +262,6 @@ def test_lowest_class_starvation_bound_matches_reference(tmp_path):
     assert b["completed"] > 0
     assert b["p99_latency"] <= s["p99_latency"]
     assert b["p99_latency"] <= 2.0 + 6.0
-
-
-@pytest.mark.parametrize("backend", ["analytic", "torch"])
-def test_preemption_heavy_grid_replays_byte_identically(backend, tmp_path):
-    """The TENANTS_SLO grid of benchmarks/scenario_matrix.py:_mt_cells and
-    its no-preemption twin through both packages; the port's preempting
-    run replays its recorded log byte for byte; the benchmark's gates
-    (gold p99 at most half the twin's, bronze goodput >= 0.7) hold."""
-    kw = TORCH_CPU if backend == "torch" else {}
-    base = dict(tenants=TENANTS_SLO, duration=12.0, peak=20.0, trough=16.0,
-                use_swa_mix=True, starve_after=15.0)
-    sc = Scenario(**base)
-    _, pre = assert_same_as_reference(sc, tmp_path, **kw)
-    assert pre.snap.preemptions > 0
-    again = replay(sc, pre, tmp_path, **kw)
-    assert again.snap.tenants == pre.snap.tenants
-    _delivered_nothing_cancelled(pre)
-    _, twin = assert_same_as_reference(Scenario(**base, preempt=False),
-                                       tmp_path, **kw)
-    assert twin.snap.preemptions == 0
-    g_pre, g_twin = (r.snap.tenants["gold"] for r in (pre, twin))
-    b_pre, b_twin = (r.snap.tenants["bronze"] for r in (pre, twin))
-    assert g_pre["p99_latency"] <= 0.5 * g_twin["p99_latency"]
-    assert b_pre["completed"] / b_twin["completed"] >= 0.70
 
 
 def test_untenanted_stack_reports_no_tenant_rows_as_reference(tmp_path):
@@ -443,4 +409,4 @@ def test_cuda_tenanted_cluster_matches_reference(cuda, tmp_path):
     assert spmm_csr_rows.launches > 0
     for link in port.cluster.controller.links.values():
         assert link.peer.core.backend.device.type == "cuda"
-    _delivered_nothing_cancelled(port)
+    delivered_nothing_cancelled(port)

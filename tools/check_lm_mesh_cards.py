@@ -39,13 +39,25 @@ node over NVLink), and fails otherwise. (a), (b), (d) and (e) run on a
     reduce-scatter sums in bf16, round differently from one card's, while
     a gradient summed over the wrong ranks or left unsummed is off by
     its own size; each rank's B3 or B2 launches in the mesh run are
-    counted (``launch/train.py:COUNTERS``) and must not be 0.
+    counted (``launch/train.py:COUNTERS``) and must not be 0;
+(f) the sharded checkpoint: qwen3-8b's 2-layer bf16 copy at full width
+    with int8 AdamW moments trains 3 steps of 4 x 2,048 tokens through
+    ``launch/train.py``'s loop on (2, 2), checkpointing at step 2 (every
+    rank gathers each leaf, rank 0 writes); the checkpoint then restores
+    on (4, 1) and on one card through the same loop, and each restored
+    leaf (gathered over its mesh) equals its file leaf for leaf, the int8
+    codes and scales included; the files are removed after.
+
+(a)-(e) run with the layers' products split over ``model`` (tensor
+parallelism, ``models/tp.py``) wherever heads, KV heads, d_ff or SSM heads
+divide at tp 2, as they do for every copy here.
 
 Prints one JSON line with every card's name and power limit.
 
 Run from the root of a checkout:  python3 tools/check_lm_mesh_cards.py
 """
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -74,6 +86,10 @@ CASES = {
                                           "swa_attention_bwd_wgmma_dq")}}
 TRAIN = {"arch": "qwen3-8b", "steps": 3, "batch": 8, "seq": 4096,
          "meshes": ((2, 2), (4, 1))}
+CKPT = {"arch": "qwen3-8b", "layers": 2, "opt_state_dtype": "int8",
+        "steps": 3, "every": 2, "batch": 4, "seq": 2048,
+        "dir": Path(__file__).resolve().parent.parent / "build"
+        / "check_lm_mesh_ckpt"}
 
 
 def _copy(case):
@@ -219,6 +235,77 @@ def train_rank(pm, arch, steps, batch, seq):
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
 
 
+def _ckpt_copy():
+    from repro_torch.configs import get_config
+    return get_config(CKPT["arch"]).replace(
+        n_layers=CKPT["layers"], opt_state_dtype=CKPT["opt_state_dtype"],
+        fsdp=True)
+
+
+def ckpt_rank(pm, restore):
+    """(f) on one rank: train the copy with checkpoints (``restore``
+    False), or restore the newest checkpoint through the same loop (no
+    step left to run) and hold each leaf, gathered over this mesh, to its
+    file on rank 0."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import gathered_leaves
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.models.common import param_specs
+    from repro_torch.optim import AdamWConfig, opt_state_decls
+    cfg = _ckpt_copy()
+    steps = CKPT["steps"] if not restore else CKPT["every"] + 1
+    t0 = time.perf_counter()
+    res = train(cfg, steps=steps, batch=CKPT["batch"], seq=CKPT["seq"],
+                ckpt_dir=CKPT["dir"], ckpt_every=CKPT["every"], mesh=pm)
+    torch.cuda.synchronize(pm.device)
+    out = {"rank": pm.rank, "start": res.start, "losses": res.losses,
+           "train_s": time.perf_counter() - t0}
+    if not restore:
+        return out
+    decls = lm.model_decls(cfg, pm.ax)
+    specs = {"opt": param_specs(opt_state_decls(decls, AdamWConfig(
+        state_dtype=cfg.opt_state_dtype))), "params": param_specs(decls),
+        "step": ()}
+    step_dir = CKPT["dir"] / f"step_{CKPT['every']:08d}"
+    equal, n = True, 0
+    for i, (path, leaf) in enumerate(gathered_leaves(
+            {"opt": res.opt, "params": res.params, "step": 0}, specs, pm)):
+        if pm.rank == 0 and isinstance(leaf, torch.Tensor):
+            got = (leaf.float() if leaf.dtype == torch.bfloat16
+                   else leaf).cpu().numpy()
+            equal &= bool(np.array_equal(got, np.load(step_dir /
+                                                      f"arr_{i}.npy")))
+            n += 1
+        del leaf
+    out.update(leaves=n, leaves_equal=equal)
+    return out
+
+
+def one_card_restore():
+    """(f) on one card: the newest checkpoint through ``train`` on
+    cuda:0, each leaf against its file."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import train
+    from repro_torch.models.common import tree_leaves
+    cfg = _ckpt_copy()
+    res = train(cfg, steps=CKPT["every"] + 1, batch=CKPT["batch"],
+                seq=CKPT["seq"], ckpt_dir=CKPT["dir"], device="cuda:0")
+    step_dir = CKPT["dir"] / f"step_{CKPT['every']:08d}"
+    leaves = list(tree_leaves({"opt": res.opt, "params": res.params,
+                               "step": 0}))[:-1]
+    equal = all(np.array_equal(
+        (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy(),
+        np.load(step_dir / f"arr_{i}.npy"))
+        for i, (_, t) in enumerate(leaves))
+    out = {"start": res.start, "leaves": len(leaves), "leaves_equal": equal}
+    del res, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import math
     import torch
@@ -257,8 +344,29 @@ def main():
         row["train"].append({**TRAIN, "mesh": list(mesh), "ranks": ranks,
                              "wall_s": time.perf_counter() - t0})
         print(json.dumps({"train": row["train"][-1]}), flush=True)
+    # (f): save on (2, 2), restore on (4, 1) and on one card
+    t0 = time.perf_counter()
+    shutil.rmtree(CKPT["dir"], ignore_errors=True)
+    try:
+        saved = dist.launch(ckpt_rank, (2, 2), ("data", "model"), False)
+        restored = dist.launch(ckpt_rank, (4, 1), ("data", "model"), True)
+        one = one_card_restore()
+    finally:
+        shutil.rmtree(CKPT["dir"], ignore_errors=True)
+    resumed = CKPT["every"] + 1
+    f = {**{k: str(v) for k, v in CKPT.items()}, "saved_on_2x2": saved[0],
+         "restored_on_4x1": restored[0], "restored_on_one_card": one,
+         "wall_s": time.perf_counter() - t0}
+    f["ok"] = bool(restored[0]["leaves_equal"] and one["leaves_equal"]
+                   and restored[0]["leaves"] == one["leaves"] > 0
+                   and all(r["start"] == resumed for r in restored)
+                   and one["start"] == resumed)
+    row["checkpoint"] = f
+    print(json.dumps({"checkpoint": f}), flush=True)
     print(json.dumps({"lm_mesh_cards": row}), flush=True)
     bad = [a for a in CASES if not row[a]["ok"]]
+    if not f["ok"]:
+        bad.append("checkpoint")
     ranks = [r for t in row["train"] for r in t["ranks"]]
     if bad or not all(math.isfinite(l) for r in ranks for l in r["losses"]) \
             or max(r["peak_gib"] for r in ranks) >= 80 \
