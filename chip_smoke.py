@@ -326,8 +326,12 @@ raises and the script exits non-zero:
    launch) equal to the launches those
    phases counted a step (B2: 72 forward calls, 36 of each backward
    launch; B3: 96 tensor-core forward calls, 48 of bK1 and of each
-   tensor-core backward launch). It prints a ``{"dryrun": ...}`` line with
-   the card's name and power limit.
+   tensor-core backward launch); and the dry run's decode step of phase
+   14 (a)'s gemma-2b (8 sequences against 256-slot caches, one token, on
+   a (1, 1) mesh through ``make_serve_step(mesh=)``): its predicted peak
+   beside the peak over phase 14 (a)'s decode loop, within the same share,
+   and no kernel call. It prints a ``{"dryrun": ...}`` line with the
+   card's name and power limit.
 
 Then it prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -2402,6 +2406,7 @@ def decode_run(name, extra, counters, cfg=None):
                              cfg.pdtype)
         prompt = np.random.default_rng(0).integers(
             0, cfg.vocab_size, (B, P), dtype=np.int32)
+    held = torch.cuda.memory_allocated()       # what earlier phases left
     for f in counters:
         f.launches = 0
     if cfg is None:
@@ -2417,7 +2422,12 @@ def decode_run(name, extra, counters, cfg=None):
     row = {"arch": cfg.name, "family": cfg.family, "int8": "--int8" in extra,
            "batch": B, "steps": res.steps, "seconds": res.seconds,
            "tok_per_s": res.tok_per_s, "ms_per_step": res.ms_per_step,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           # the CLI's peak over its decode loop (its weights and caches
+           # resident, no draw; not what earlier phases left), else the
+           # run's
+           "peak_gib": (res.peak_bytes if res.peak_bytes is not None
+                        else torch.cuda.max_memory_allocated()) / 2 ** 30,
+           "held_before_gib": held / 2 ** 30,
            "kernel_launches": launched}
     if row["int8"]:
         eligible = {k for k, d in key_leaves(model_decls(cfg))
@@ -2536,8 +2546,8 @@ def decode_vs_prefill(label, cfg, params, tokens, first, last, counters,
             return out
         return call
 
-    def recording_decode(params, token, pos, cache, cfg):
-        out, cache = real_decode(params, token, pos, cache, cfg)
+    def recording_decode(params, token, pos, cache, cfg, **kw):
+        out, cache = real_decode(params, token, pos, cache, cfg, **kw)
         if pos >= first:
             logits.append(out)
         return out, cache
@@ -2953,10 +2963,11 @@ def lm_mesh_rank(pm, arch, layers, batch, seq):
     return out
 
 
-def dryrun_phase(card, train16, train17):
+def dryrun_phase(card, train16, train17, decode14):
     """Phase 20: the dry run's evaluation of phases 16 (c) and 17 (c)'s
-    steps, one rank of a (1, 1) mesh on meta tensors, against what those
-    phases measured (see the module docstring). Returns its record."""
+    steps and of phase 14 (a)'s gemma-2b decode step, one rank of a
+    (1, 1) mesh on meta tensors, against what those phases measured (see
+    the module docstring). Returns its record."""
     from repro_torch.configs import SHAPES, ShapeSpec, get_config
     from repro_torch.kernels import ssd, swa
     from repro_torch.launch.dryrun import evaluate
@@ -3002,6 +3013,29 @@ def dryrun_phase(card, train16, train17):
             raise AssertionError(f"{key}: the dry run counts "
                                  f"{rec['kernel_calls']} kernel calls a "
                                  f"step; the card launched {launched}")
+    # phase 14 (a)'s gemma-2b decode: one token a step
+    t1 = time.perf_counter()
+    B, P, gen = (int(DECODE_ARGV[DECODE_ARGV.index(f) + 1])
+                 for f in ("--batch", "--prompt-len", "--gen"))
+    rec = evaluate(get_config("gemma-2b"), ShapeSpec(
+        "phase-gemma-decode", P + gen, B, "decode"), (1, 1))
+    pred = rec["memory"]["peak_bytes"] / 2 ** 30
+    share = abs(pred - decode14["peak_gib"]) / decode14["peak_gib"]
+    out["gemma_decode"] = {
+        "arch": "gemma-2b", "batch": B, "cache_slots": P + gen,
+        "predicted_peak_gib": pred, "measured_peak_gib": decode14["peak_gib"],
+        "peak_share": share, "memory": rec["memory"],
+        "kernel_calls": rec["kernel_calls"], "dot_flops": rec["dot_flops"],
+        "bytes_accessed": rec["bytes_accessed"],
+        "collectives": rec["collectives"], "trace_s": rec["trace_s"],
+        "seconds": time.perf_counter() - t1}
+    print(json.dumps({"dryrun gemma_decode": out["gemma_decode"]}),
+          flush=True)
+    if share > DRYRUN_PEAK_SHARE or rec["kernel_calls"]:
+        raise AssertionError(f"gemma_decode: predicted peak {pred:.3f} GiB, "
+                             f"measured {decode14['peak_gib']:.3f} "
+                             f"({share:.2%} apart); kernel calls "
+                             f"{rec['kernel_calls']}")
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps({"dryrun": out}), flush=True)
     return out
@@ -4181,8 +4215,9 @@ def main():
 
     # 20) the dry run against the card: predicted peaks and kernel calls
     phase("20. the dry run (launch/dryrun.py) against the card: phases 16 "
-          "(c) and 17 (c) on meta tensors, peak memory and kernel calls")
-    dryrun_phase(card, tr["train"], st["train"])
+          "(c), 17 (c) and 14 (a)'s gemma-2b decode on meta tensors, peak "
+          "memory and kernel calls")
+    dryrun_phase(card, tr["train"], st["train"], decode_row["runs"]["gemma-2b"])
 
     kernels = [{
         "name": "spmm_csr_rows", "route": "cuda",

@@ -17,7 +17,8 @@ out with ``shard_map``. This module does that job for the port with
     the layout needs (``psum``, ``enter``, ``pmax``, ``pmean``,
     ``axis_index``, ``all_gather``; for tensor parallelism over ``model``,
     ``models/tp.py``: ``take``, an all-to-all of asked columns,
-    ``allsum`` and ``own``).
+    ``allsum`` and ``own``; for the sharded decode, without a gradient,
+    ``recut`` and ``reduce_scatter``).
   * ``shard``/``unshard``/``local_shape`` cut a full tensor by a spec
     (``models/common.py``) and put it back, on the host; ``shard_init``
     draws a parameter tree one full leaf at a time and keeps the rank's
@@ -450,6 +451,29 @@ class ProcessMesh:
         return _Take.apply(x, group, len(ranks), ranks.index(self.rank),
                            dim % x.dim(), ranges)
 
+    def recut(self, x, axis, split_dim: int, cat_dim: int):
+        """``x`` cut into the group's size along ``split_dim``, piece j sent
+        to rank j (one all-to-all), and the pieces received from the
+        ranks joined in rank order along ``cat_dim``: the tensor the group
+        holds cut along ``cat_dim`` comes back cut along ``split_dim``. No
+        gradient (the decode step's re-cuts)."""
+        group, ranks = self.groups[self.key(axis)]
+        n = len(ranks)
+        if n == 1:
+            return x
+        w = x.shape[split_dim] // n
+        got = _all_to_all(x.movedim(split_dim, 0), group, [w] * n, [w] * n)
+        return torch.cat(got.movedim(0, split_dim).chunk(n, dim=split_dim),
+                         dim=cat_dim)
+
+    def reduce_scatter(self, x, axis, dim: int):
+        """The sum over the axis of ``x``, of which each rank keeps its
+        slice along ``dim``. No gradient."""
+        group, ranks = self.groups[self.key(axis)]
+        if len(ranks) == 1:
+            return x
+        return _reduce_scatter(x, group, len(ranks), dim)
+
     def spec_axes(self, spec) -> tuple:
         """The groups (``"data"``, ``"model"``) that cut a leaf."""
         return tuple(sorted({self.key(e) for e in spec if e is not None}))
@@ -547,6 +571,17 @@ def _worker(rank, world, port, shape, axes, on_cpu, fn, args, q):
     except BaseException:          # the parent raises it with the traceback
         q.put((rank, False, traceback.format_exc()))
         raise SystemExit(1)
+
+
+def mesh_shape(text: str) -> tuple:
+    """``--mesh DxM`` of the launchers: (D, M)."""
+    import argparse
+    try:
+        d, m = (int(n) for n in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh {text!r}: expected DxM, e.g. 2x2") from None
+    return d, m
 
 
 def launch(fn, shape, axes=("data", "model"), *args, device=None,

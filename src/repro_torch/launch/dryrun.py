@@ -22,12 +22,13 @@ every tensor on the meta device:
   * each collective of ``launch/dist.py`` at its call: kind, operand bytes
     (the reference's convention) and group.
 
-``dot_flops`` is the matmul family plus the kernels' FLOPs. The decode
-step has no mesh yet (the sharded decode is not written), so a decode cell
-records its arguments only (``status: "arguments_only"``). The reference's
-skip rule carries over: ``long_500k`` of a full-attention arch
-(``LONG_SKIP``) is ``skipped``. ``launch/roofline.py`` turns the records
-into H100 time terms.
+``dot_flops`` is the matmul family plus the kernels' FLOPs. A decode
+cell traces one step, one token a sequence (``make_serve_step(mesh=)`` at
+the last position of its cache, every slot valid): its FLOPs, bytes,
+collectives and peak are those of one token. The reference's skip rule
+carries over: ``long_500k`` of a full-attention arch (``LONG_SKIP``) is
+``skipped``. ``launch/roofline.py`` turns the records into H100 time
+terms.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
@@ -68,8 +69,6 @@ RESULTS = REPO / "results" / "dryrun_torch"
 META = torch.device("meta")
 SKIP_REASON = ("full-attention arch; long_500k requires sub-quadratic "
                "attention (DESIGN.md §4)")
-DECODE_REASON = ("the decode step has no mesh yet (the sharded decode, "
-                 "ROADMAP A item 1.4): arguments only")
 BYTES_NOTE = "eager, op by op, no fusion: each op's inputs and outputs"
 
 
@@ -166,8 +165,8 @@ def evaluate(cfg: ModelConfig, shape: ShapeSpec, mesh_shape) -> dict:
     """The step of ``shape`` of the rank at the interior coordinate of a
     mesh of ``mesh_shape`` (axes ``("data", "model")``, or ``("pod",
     "data", "model")`` for three dims) on meta tensors: its memory, FLOPs,
-    bytes, collectives and kernel calls. A decode shape gives the argument
-    bytes only."""
+    bytes, collectives and kernel calls; a decode shape's step is one
+    token's, at the cache's last position."""
     mesh_shape = tuple(int(n) for n in mesh_shape)
     axes = production_axes(mesh_shape)
     world = int(np.prod(mesh_shape))
@@ -180,31 +179,43 @@ def evaluate(cfg: ModelConfig, shape: ShapeSpec, mesh_shape) -> dict:
            "rank": rank, "coords": dict(zip(axes, (int(i) for i in
                                                    np.unravel_index(
                                                        rank, mesh_shape))))}
-    if shape.step == "decode":
-        rec.update(status="arguments_only", reason=DECODE_REASON,
-                   memory={"argument_bytes": arg_bytes})
-        return rec
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
     from .dist import process_mesh
-    *state_specs, batch_spec = args
-    # the global batch, untracked: the step cuts the rank's rows from it
-    batch = {k: torch.empty(v.shape, dtype=v.dtype, device=META)
-             for k, v in batch_spec.items()}
-    batch_bytes = sum(v.nbytes for v in batch_spec.values())
+    if shape.step == "decode":
+        params_spec, token_spec, _, cache_spec = args
+        state_specs = [params_spec, cache_spec]
+        # the global token, untracked: the step cuts the rank's rows
+        batch = [torch.empty(token_spec.shape, dtype=token_spec.dtype,
+                             device=META), shape.seq_len - 1]
+        batch_bytes = token_spec.nbytes
+
+        def call(fn, state):
+            return fn(state[0], *batch, state[1])
+    else:
+        *state_specs, batch_spec = args
+        # the global batch, untracked: the step cuts the rank's rows from it
+        batch = {k: torch.empty(v.shape, dtype=v.dtype, device=META)
+                 for k, v in batch_spec.items()}
+        batch_bytes = sum(v.nbytes for v in batch_spec.values())
+
+        def call(fn, state):
+            return fn(*state, batch)
     with fake_world(world, rank):
         pm = process_mesh(mesh, rank)
         fn, donate = step_fn(cfg, shape, pm)
         mt = MemTracker()
         with mt:
             state = [materialize(a) for a in state_specs]
+            # the donated arguments: (params, opt_state) or the cache
+            donated = state if shape.step == "train" else state[1:]
             state_bytes = _storage_bytes(state)
             with FlopCounterMode(display=False) as fc, OpBytes() as ob, \
                     tally.counting() as counted:
                 t0 = time.perf_counter()
                 with torch.set_grad_enabled(shape.step == "train"):
-                    out = fn(*state, batch)
+                    out = call(fn, state)
                 trace_s = time.perf_counter() - t0
         peak = mt.get_tracker_snapshot("peak").get(META, {}).get("Total", 0)
         by_axis = pm.collectives_by_axis(counted)
@@ -213,7 +224,7 @@ def evaluate(cfg: ModelConfig, shape: ShapeSpec, mesh_shape) -> dict:
         status="ok", trace_s=round(trace_s, 3),
         memory={"argument_bytes": arg_bytes,
                 "output_bytes": _storage_bytes(_as_leaves(out)),
-                "alias_bytes": state_bytes if donate else 0,
+                "alias_bytes": _storage_bytes(donated) if donate else 0,
                 "temp_bytes": peak - state_bytes,
                 "peak_bytes": peak + batch_bytes},
         collectives=counted.by_kind(), collectives_by_axis=by_axis,

@@ -7,7 +7,7 @@ caches (KV caches, the SWA ring buffer, the SSM conv and state caches):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] [--int8] \
-      [--device cpu]
+      [--mesh DxM] [--device cpu]
 
 The prompt (numpy ``default_rng(0)``) is fed one token a step
 (teacher-forced), then ``--gen`` tokens are generated greedily; it prints
@@ -15,8 +15,16 @@ tok/s and a sample. Weights are drawn from a seeded ``torch.Generator``
 (``jax.random`` cannot be reproduced, so the sample differs from the
 reference's). ``--int8`` serves the big projection matrices as int8
 (``models/quant.py``), dequantized on each use. The full config runs on
-one card (the reference runs it on a production mesh); ``--device cpu``
-runs on the CPU. Every family is served: the moe family (deepseek)
+one card, or with ``--mesh DxM`` on a (data, model) mesh of D x M cards
+(the reference runs it on a production mesh): one process a card
+(``launch/dist.py``, as ``launch/train.py --mesh`` runs), each holding its
+shards of the weights (drawn as one device draws them, then quantized
+with the global leaves' scales under ``--int8``) and of the caches in the
+reference's cache specs, and decoding its rows of the batch (every row
+when the batch does not divide over D); every mixer computes in the cut
+its cache has (``models/lm.py:decode_step``), and rank 0 prints the lines
+one device prints. ``--device cpu`` runs on the CPU (with ``--mesh``, CPU
+processes over gloo). Every family is served: the moe family (deepseek)
 through the absorbed MLA decode against its latent cache, the encdec
 family (seamless) cross-attending to an encoder output of ones (the
 reference's stand-in), the vlm family (paligemma) on its text tokens.
@@ -149,6 +157,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+
+from .dist import mesh_shape
 
 
 def parse_host_profiles(spec: str) -> dict:
@@ -496,6 +506,9 @@ class DecodeResult:
     tokens: object              # (B, gen) int32 numpy, the greedy tokens
     seconds: float              # host clock around the synchronised loop
     steps: int                  # decode steps run (prompt_len + gen - 1)
+    # the card's peak over the decode loop, less what it held before the
+    # run's weights were drawn
+    peak_bytes: int | None = None
 
     @property
     def tok_per_s(self) -> float:
@@ -506,28 +519,32 @@ class DecodeResult:
         return self.seconds * 1e3 / self.steps
 
 
-def decode(cfg, params, prompt, gen: int, device=None):
+def decode(cfg, params, prompt, gen: int, device=None, *, mesh=None):
     """Batched greedy decode: the prompt (B, P) is fed one token a step
     (teacher-forced), then ``gen`` tokens are generated greedily, each
     step one ``make_serve_step`` against caches of P + gen positions.
     The encdec family cross-attends to an encoder output of ones, as the
-    reference's decode mode does. Returns ((B, gen) int32 numpy tokens,
-    seconds of the loop)."""
+    reference's decode mode does. With ``mesh`` (a ``launch/dist.
+    ProcessMesh``; every rank calls) ``params`` are the rank's shards, the
+    caches its shards (``steps.init_cache_shards``) and each step decodes
+    its rows of the batch. Returns ((B, gen) int32 numpy tokens, seconds
+    of the loop)."""
     import numpy as np
     import torch
 
     from ..device import resolve_device, synchronize
     from ..models.lm import init_cache
-    from .steps import make_serve_step
+    from .steps import init_cache_shards, make_serve_step
 
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     B, P = prompt.shape
     L = P + gen
-    serve = make_serve_step(cfg, device=dev)
+    serve = make_serve_step(cfg, device=dev, mesh=mesh, seq_len=L)
     prompt_t = torch.as_tensor(np.asarray(prompt, np.int32)).to(dev)
     outs = []
     with torch.inference_mode():
-        cache = init_cache(cfg, B, L, device=dev)
+        cache = (init_cache(cfg, B, L, device=dev) if mesh is None
+                 else init_cache_shards(cfg, B, L, mesh))
         if cfg.family == "encdec":
             cache["enc_out"].fill_(1)
         tok = prompt_t[:, :1]
@@ -545,35 +562,75 @@ def decode(cfg, params, prompt, gen: int, device=None):
     return torch.cat(outs, dim=1).cpu().numpy(), dt
 
 
-def run_decode(args) -> DecodeResult:
-    """Batched greedy decode for one assigned architecture."""
+def _serving_params(cfg, int8: bool, dev, mesh=None):
+    """The seeded weights of ``run_decode`` (one device's draws; on a
+    mesh each rank keeps its shards), int8 where ``int8``."""
+    import torch
+
+    from ..models import init_params, model_decls
+    from ..models.quant import quantize_params
+    from .dist import shard_init
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if mesh is None:
+        params = init_params(model_decls(cfg), gen, dev, cfg.pdtype)
+        return quantize_params(params) if int8 else params
+    decls = model_decls(cfg, mesh.ax)
+    params = shard_init(decls, gen, dev, cfg.pdtype, mesh.ax, mesh.coords)
+    return quantize_params(params, mesh=mesh, decls=decls) if int8 \
+        else params
+
+
+def _decode_rank(pm, cfg, args):
+    """One rank of ``run_decode --mesh``: rank 0 prints and returns the
+    run's result (its parameters left out), the others return None."""
+    res = _run_decode(cfg, args, mesh=pm)
+    if pm.rank != 0:
+        return None
+    res.params = None
+    return res
+
+
+def _run_decode(cfg, args, mesh=None) -> DecodeResult:
     import numpy as np
     import torch
 
-    from ..configs import get_config, get_smoke
     from ..device import resolve_device
-    from ..models import init_params, model_decls
-
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device if mesh is None else mesh.device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    decls = model_decls(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(decls, gen, dev, cfg.pdtype)
-    if args.int8:
-        from ..models.quant import quantize_params
-        params = quantize_params(params)
-        print("[serve] int8 serving weights enabled")
-
+    log = mesh is None or mesh.rank == 0
+    # what the card held before this run (not the decode's own)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    params = _serving_params(cfg, args.int8, dev, mesh)
+    if args.int8 and log:
+        print("[serve] int8 serving weights enabled", flush=True)
     B = args.batch
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, args.prompt_len), dtype=np.int32)
-    tokens, dt = decode(cfg, params, prompt, args.gen, device=dev)
-    print(f"[serve] {B} seqs x {tokens.shape[1]} tokens in {dt:.1f}s "
-          f"({B * tokens.shape[1] / dt:.1f} tok/s)")
-    print("[serve] sample:", tokens[0][:16].tolist())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    tokens, dt = decode(cfg, params, prompt, args.gen, device=dev, mesh=mesh)
+    peak = (torch.cuda.max_memory_allocated(dev) - before
+            if dev.type == "cuda" else None)
+    if log:
+        print(f"[serve] {B} seqs x {tokens.shape[1]} tokens in {dt:.1f}s "
+              f"({B * tokens.shape[1] / dt:.1f} tok/s)")
+        print("[serve] sample:", tokens[0][:16].tolist(), flush=True)
     return DecodeResult(cfg, params, prompt, tokens, dt,
-                        args.prompt_len + args.gen - 1)
+                        args.prompt_len + args.gen - 1, peak)
+
+
+def run_decode(args) -> DecodeResult:
+    """Batched greedy decode for one assigned architecture, on one device
+    or, with ``args.mesh``, on a (data, model) mesh of processes (rank
+    0's result, without its parameters)."""
+    from ..configs import get_config, get_smoke
+    from .dist import launch
+
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.mesh is None:
+        return _run_decode(cfg, args)
+    return launch(_decode_rank, args.mesh, ("data", "model"), cfg, args,
+                  device=args.device)[0]
 
 
 def parser() -> argparse.ArgumentParser:
@@ -587,6 +644,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--mesh", type=mesh_shape, default=None,
+                    help="DxM: decode on a (data, model) mesh, one process "
+                         "a slot (a card, or a CPU process with --device "
+                         "cpu)")
     # stream-mode args
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--duration", type=float, default=120.0)
@@ -766,6 +827,8 @@ def parse_args(argv=None) -> argparse.Namespace:
             parse_tenants(args.tenants)
         except ValueError as e:
             ap.error(str(e))
+    if args.stream and args.mesh is not None:
+        ap.error("--mesh applies to the decode mode only")
     if args.stream and args.device is not None and args.backend != "torch":
         ap.error("--device applies to the decode mode and --backend torch "
                  "only")

@@ -146,19 +146,47 @@ def make_prefill_step(cfg: ModelConfig, device=None, *, mesh=None):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, device=None):
+def make_serve_step(cfg: ModelConfig, device=None, *, mesh=None,
+                    seq_len: int | None = None):
     """A step ``(params, token, pos, cache) -> (next token, cache)``: one
     ``lm.decode_step`` (the cache written in place; ``pos`` a Python int),
-    then the greedy token of the last position as int32 (B, 1)."""
+    then the greedy token of the last position as int32 (B, 1); ties go to
+    the lowest id, as ``jnp.argmax``'s do.
+
+    With ``mesh`` (a ``launch/dist.ProcessMesh``; ``device`` is its card)
+    ``params`` and ``cache`` are this rank's shards (``init_cache_shards``
+    of ``seq_len`` positions, a length that the shards do not tell)
+    and ``token`` is the global (B, 1) batch, as the reference's arrays
+    are global: each rank decodes its rows (``lm.decode_step(mesh=)``) and
+    the next token comes back whole, gathered over the data axes. On a
+    one-slot mesh the step is the unsharded one, bit for bit."""
+    if mesh is not None:
+        device = mesh.device
     resolve_device(device)
     lm.model_decls(cfg)                      # raises for an unknown family
 
     def serve_step(params, token, pos, cache):
-        logits, cache = lm.decode_step(params, token, pos, cache, cfg)
+        logits, cache = lm.decode_step(params, token, pos, cache, cfg,
+                                       mesh=mesh, seq_len=seq_len)
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        if mesh is not None:
+            pm = mesh.for_batch(token.shape[0])
+            if pm.split_data and pm.size("data") > 1:
+                nxt = pm.all_gather(nxt, "data", 0)
         return nxt, cache
 
     return serve_step
+
+
+def init_cache_shards(cfg: ModelConfig, batch: int, seq_len: int, mesh):
+    """A rank's zero shards of ``lm.init_cache(cfg, batch, seq_len)`` on
+    ``mesh`` (a ``launch/dist.ProcessMesh``, on its device), in the specs
+    of ``_cache_sharding_tree``."""
+    from .dist import local_shape
+    specs = lm.cache_specs(cfg, batch, seq_len, mesh.ax)
+    return tree_map(lambda t, sp: torch.zeros(
+        local_shape(t.shape, sp, mesh.ax), dtype=t.dtype,
+        device=mesh.device), lm.cache_shapes(cfg, batch, seq_len), specs)
 
 
 # ---------------------------------------------------------------------------
@@ -242,37 +270,10 @@ def _cache_sharding_tree(cfg: ModelConfig, cache, mesh, batch: int):
     """Specs for a cache tree of (global) meta tensors, stacked layer dim
     leading: the batch dim over the data axes when it divides, else the
     longest remaining dim that divides; the last head or feature dim that
-    divides over ``model``."""
+    divides over ``model`` (``lm.cache_spec``)."""
     ax = axis_env_for_mesh(mesh)
-    dp, model = ax.dp, ax.model
-    dpsz, tpsz = ax.size(dp), ax.size(model)
-
-    def spec_for(t):
-        shp = tuple(t.shape)  # (layers, B, ...) or (B, S, d) for enc_out
-        if len(shp) >= 2 and shp[0] != batch:
-            body, lead = shp[1:], (None,)    # strip the stacked layer dim
-        else:
-            body, lead = shp, ()
-        rest = [None] * len(body)
-        if body[0] == batch and batch % dpsz == 0:
-            rest[0] = dp
-        # shard a head/feature dim over model when divisible
-        for i in range(len(body) - 1, 0, -1):
-            if body[i] % tpsz == 0 and body[i] >= tpsz and tpsz > 1:
-                rest[i] = model
-                break
-        # if batch not shardable, shard the longest remaining dim over data
-        if rest[0] is None:
-            cand = [(body[i], i) for i in range(1, len(body))
-                    if rest[i] is None and body[i] % dpsz == 0
-                    and body[i] >= dpsz]
-            if cand:
-                _, i = max(cand)
-                rest[i] = dp
-        return (*lead, *rest)
-
-    return tree_map(lambda t: AbstractLeaf.of(t.shape, t.dtype, spec_for(t),
-                                              ax), cache)
+    return tree_map(lambda t: AbstractLeaf.of(
+        t.shape, t.dtype, lm.cache_spec(t.shape, ax, batch), ax), cache)
 
 
 def decode_specs(cfg: ModelConfig, shape: ShapeSpec, mesh):
@@ -322,19 +323,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh):
     return (params, token, pos, cache)
 
 
-NO_MESH_DECODE = ("a decode step on a mesh of more than one slot: the "
-                  "sharded decode is not written yet")
-
-
 def step_fn(cfg: ModelConfig, shape: ShapeSpec, mesh):
     """(the step of ``shape``'s kind for one rank of ``mesh``, a
     ``launch/dist.ProcessMesh``; the indices of the arguments it updates
-    in place). The decode step runs on one slot only."""
+    in place)."""
     cfg = effective_config(cfg, shape)
     if shape.step == "train":
         return make_train_step(cfg, mesh=mesh), (0, 1)
     if shape.step == "prefill":
         return make_prefill_step(cfg, mesh=mesh), ()
-    if mesh.size("data") * mesh.size("model") > 1:
-        raise NotImplementedError(NO_MESH_DECODE)
-    return make_serve_step(cfg, device=mesh.device), (3,)
+    return make_serve_step(cfg, mesh=mesh, seq_len=shape.seq_len), (3,)

@@ -65,7 +65,7 @@ from ..models.common import (ModelConfig, init_params, param_count,
                              param_specs)
 from ..models.lm import model_decls
 from ..optim import AdamWConfig, adamw_init, opt_state_decls
-from .dist import launch, shard_init
+from .dist import launch, mesh_shape, shard_init
 from .steps import effective_config, make_train_step
 
 SEED = 0              # weights (torch.Generator on the device)
@@ -182,15 +182,6 @@ def _train_rank(pm, cfg, kw):
     return _summary(train(cfg, mesh=pm, **kw), pm.device)
 
 
-def _mesh_shape(text: str) -> tuple:
-    try:
-        d, m = (int(n) for n in text.lower().split("x"))
-    except ValueError:
-        raise argparse.ArgumentTypeError(
-            f"--mesh {text!r}: expected DxM, e.g. 2x2") from None
-    return d, m
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -205,7 +196,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises when there is no card)")
-    ap.add_argument("--mesh", type=_mesh_shape, default=None,
+    ap.add_argument("--mesh", type=mesh_shape, default=None,
                     help="DxM: a (data, model) mesh, one process a slot "
                          "(a card, or a CPU process with --device cpu)")
     args = ap.parse_args(argv)

@@ -15,7 +15,8 @@ Three execution paths:
     of ``window`` slots for SWA), plain PyTorch as in the JAX package.
     ``attention_decode_step`` writes the new k and v into the cache in
     place, and takes ``pos`` as a Python int so that neither the slot nor
-    the mask needs the device.
+    the mask needs the device. On a mesh it computes in the cut that the
+    cache has (``_decode_on_mesh``): no cache leaf is gathered.
 """
 from __future__ import annotations
 
@@ -261,11 +262,121 @@ def decode_attention(q, k_cache, v_cache, *, scale: float, valid):
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def softmax_pv(s, pv, mesh=None, cut: bool = False):
+    """softmax(s) · v over the cached slots of masked float32 scores s
+    (..., L), ``pv(p)`` contracting p (..., L) with the values. With
+    ``cut`` the L slots are this rank's share of the data axes' slots:
+    the row max is taken over all of them first, then the exponentials'
+    sums and ``pv`` of them are summed over the data axes in one
+    all-reduce and divided (flash decoding's combine, in one pass). A rank
+    whose slots are all masked adds exp(NEG_INF - max) = 0."""
+    if not cut:
+        return pv(torch.softmax(s, dim=-1))
+    e = torch.exp(s - mesh.pmax(s.amax(dim=-1, keepdim=True), "data"))
+    num, den = pv(e), e.sum(dim=-1)
+    both = mesh.psum(torch.cat([num.reshape(-1), den.reshape(-1)]), "data")
+    k = num.numel()
+    return both[:k].reshape(num.shape) / both[k:].reshape(den.shape)[..., None]
+
+
+def kv_sources(cfg: ModelConfig, tp_size: int, local: int) -> list:
+    """For each KV head, its index in the model ranks' concatenated
+    (``local`` rows a rank) per-rank heads of ``tp_heads``: the first
+    rank that computed it."""
+    src = {}
+    for r in range(tp_size):
+        for i, kh in enumerate(tp.kv_heads(cfg.n_heads, cfg.n_kv_heads,
+                                           tp_size, r)):
+            src.setdefault(kh, r * local + i)
+    return [src[kh] for kh in range(cfg.n_kv_heads)]
+
+
+def cut_layout(mesh, spec: tuple, feature: int):
+    """(slots cut over data, model ranks cutting the last (feature) dim)
+    of a (B, L, ..., F) cache leaf's per-layer ``spec``; raises for a
+    layout that the decode step does not compute in (the model axis
+    cutting another dim, the data axes cutting a head dim)."""
+    tpn = mesh.size("model")
+    if tpn > 1 and (spec[-1] is None or mesh.key(spec[-1]) != "model"
+                    or feature % tpn):
+        raise ValueError(f"cache spec {spec}: the decode step computes "
+                         "in a cache cut over model along its last dim")
+    if any(e is not None for e in spec[2:-1]):
+        raise ValueError(f"cache spec {spec}: the decode step computes in "
+                         "a cache cut over data along B or its slots")
+    return spec[1] is not None, tpn
+
+
+def _decode_on_mesh(p, x, pos, cache, cfg, window, mesh, spec):
+    """``attention_decode_step`` on a mesh whose cache (B, L, KV, D) is
+    cut along D over ``model`` (and along L over data when B does not
+    divide). q, k and v are projected for the rank's heads
+    (``tp_heads``), qk-norm and RoPE applied on whole heads, then the new
+    token's heads are all-gathered over ``model`` and each rank keeps its
+    D-slice of every head: it writes k and v into its slice (the data rank
+    that owns the slot), sums its partial scores over ``model`` in
+    float32, and computes p·v on its D-slice (combined over data when L is
+    cut, ``softmax_pv``). o is gathered back to whole heads for ``wo``:
+    the rank's heads for the row-parallel product, all of them where
+    ``wo`` is whole."""
+    s_cut, tpn = cut_layout(mesh, spec, cfg.head_dim)
+    B, Sl = x.shape[0], cache["k"].shape[1]
+    L = Sl * (mesh.size("data") if s_cut else 1)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    pt, lcfg, tmesh = tp_heads(p, cfg, mesh)
+    q, k, v = _qkv(pt, x, positions, lcfg, tmesh)
+    if tmesh is not None:
+        hl, kl = lcfg.n_heads, lcfg.n_kv_heads
+        g = mesh.all_gather(torch.cat([q, k, v], dim=2), "model", 2)
+        g = g.reshape(B, 1, tpn, hl + 2 * kl, D)
+        q = g[:, :, :, :hl].reshape(B, 1, H, D)
+        src = kv_sources(cfg, tpn, kl)
+        kv = g[:, :, :, hl:].reshape(B, 1, tpn, 2, kl, D).transpose(2, 3)
+        kv = kv.reshape(B, 1, 2, tpn * kl, D)[:, :, :, src]
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    j, Dl = mesh.axis_index("model"), D // tpn
+    q, k, v = (t[..., j * Dl:(j + 1) * Dl] for t in (q, k, v))
+    slot = pos % L if window is not None else pos
+    off = mesh.axis_index("data") * Sl if s_cut else 0
+    if off <= slot < off + Sl:
+        cache["k"][:, slot - off] = k[:, 0]
+        cache["v"][:, slot - off] = v[:, 0]
+    idx = off + torch.arange(Sl, device=x.device)
+    valid = ((idx <= slot) | (pos >= L)) if window is not None else (
+        idx <= pos)
+    qg = (q.float() * D ** -0.5).reshape(B, KV, H // KV, Dl)
+    s = torch.einsum("bkgd,blkd->bkgl", qg, cache["k"].float())
+    if tpn > 1:
+        s = mesh.psum(s, "model")
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    vf = cache["v"].float()
+    o = softmax_pv(s, lambda pr: torch.einsum("bkgl,blkd->bkgd", pr, vf),
+                   mesh, s_cut)
+    o = o.reshape(B, 1, H, Dl).to(cfg.cdtype)
+    if tpn > 1:
+        o = mesh.all_gather(o, "model", 3)
+    o, wo = o.reshape(B, 1, H * D), pt["wo"].to(cfg.cdtype)
+    if tmesh is None:
+        return o @ wo
+    hd = lcfg.n_heads * D
+    return tp.row_parallel(tmesh, o[..., j * hd:(j + 1) * hd], wo)
+
+
 def attention_decode_step(p, x, pos: int, cache, cfg: ModelConfig, *,
-                          window: int | None = None):
+                          window: int | None = None, mesh=None, spec=None):
     """x: (B,1,d); pos: the absolute position, a Python int; cache:
     dict(k,v) of (B,L,KV,D), written in place at the new token's slot
-    (``pos % L`` for SWA, ``pos`` otherwise). Returns (y, cache)."""
+    (``pos % L`` for SWA, ``pos`` otherwise). Returns (y, cache).
+
+    On a mesh (``launch/dist.ProcessMesh``; ``p`` the layer's leaves
+    gathered over the data axes, x the rank's rows, ``spec`` the per-layer
+    specs of the cache leaves, whose shards ``cache`` holds) that cuts the
+    cache over ``model`` or its slots over data: ``_decode_on_mesh``."""
+    if mesh is not None and (tp.tp_mesh(mesh) is not None
+                             or spec["k"][1] is not None):
+        return _decode_on_mesh(p, x, pos, cache, cfg, window, mesh,
+                               spec["k"]), cache
     B = x.shape[0]
     L = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)

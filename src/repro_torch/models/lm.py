@@ -33,6 +33,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
@@ -46,6 +47,7 @@ from .common import (CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec,
 from .layers import (chunked_softmax_xent, embed_apply, embed_decls,
                      ffn_apply, ffn_decls, logits_from_hidden, norm_decl,
                      rms_norm)
+from .quant import QuantizedArray, local_scale
 
 
 # ---------------------------------------------------------------------------
@@ -542,82 +544,338 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
     raise ValueError(fam)
 
 
-def _attn_step(h, lp, lc, pos, cfg, *, moe=False, mla=False):
+def cache_spec(shape, ax: AxisEnv, batch: int) -> tuple:
+    """The spec of a cache leaf of global ``shape`` ((layers, B, ...), or
+    (B, S, d) for enc_out) on a mesh of ``ax``'s sizes, by the reference's
+    rule (``src/repro/launch/steps.py:129-168``): the batch dim over the
+    data axes when it divides, else the longest remaining dim that
+    divides; the last head or feature dim that divides over ``model``. A
+    leading dim equal to the batch reads as the batch."""
+    dp, model = ax.dp, ax.model
+    dpsz, tpsz = ax.size(dp), ax.size(model)
+    shp = tuple(shape)
+    if len(shp) >= 2 and shp[0] != batch:
+        body, lead = shp[1:], (None,)       # strip the stacked layer dim
+    else:
+        body, lead = shp, ()
+    rest = [None] * len(body)
+    if body[0] == batch and batch % dpsz == 0:
+        rest[0] = dp
+    # shard a head/feature dim over model when divisible
+    for i in range(len(body) - 1, 0, -1):
+        if body[i] % tpsz == 0 and body[i] >= tpsz and tpsz > 1:
+            rest[i] = model
+            break
+    # if batch not shardable, shard the longest remaining dim over data
+    if rest[0] is None:
+        cand = [(body[i], i) for i in range(1, len(body))
+                if rest[i] is None and body[i] % dpsz == 0
+                and body[i] >= dpsz]
+        if cand:
+            _, i = max(cand)
+            rest[i] = dp
+    return (*lead, *rest)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int):
+    """``init_cache(cfg, batch, seq_len)`` as meta tensors, made outside
+    any dispatch mode, so that a dry run's trackers do not count the
+    global cache as the step's own."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return init_cache(cfg, batch, seq_len, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, ax: AxisEnv):
+    """The spec tree of ``init_cache(cfg, batch, seq_len)`` on a mesh of
+    ``ax``'s sizes (``cache_spec``)."""
+    return tree_map(lambda t: cache_spec(t.shape, ax, batch),
+                    cache_shapes(cfg, batch, seq_len))
+
+
+def cache_layout(cfg: ModelConfig, cache, ax: AxisEnv, batch: int,
+                 seq_len: int):
+    """The spec tree of a rank's shards ``cache`` of the caches of a
+    global batch of ``batch`` rows and ``seq_len`` positions
+    (``init_cache``'s length), checked against the shards' shapes. The
+    shards alone cannot give the length: 10 slots cut over data and an
+    uncut cache of 5 have the same shards."""
+    from ..launch.dist import local_shape
+    specs = cache_specs(cfg, batch, seq_len, ax)
+    glob, sp = (dict(tree_leaves(t)) for t in
+                (cache_shapes(cfg, batch, seq_len), specs))
+    got = dict(tree_leaves(cache))
+    if got.keys() != glob.keys() or any(
+            local_shape(glob[p].shape, sp[p], ax) != tuple(t.shape)
+            for p, t in got.items()):
+        raise ValueError(f"the caches of {batch} rows and {seq_len} "
+                         f"positions on a mesh of {ax.sizes} have other "
+                         f"shards than {[(p, tuple(t.shape)) for p, t in got.items()]}")
+    return specs
+
+
+class _DecodeLeaves:
+    """The parameters a decode step reads. Without a mesh each leaf as it
+    is. On a mesh (``launch/dist.ProcessMesh``) ``_Leaves``' gathers, a
+    layer at a time: over the data axes only on a model axis of more than
+    one rank (the mixers split over ``model``), else over every axis that
+    cuts the leaf; a group of one rank gathers nothing, so a one-slot mesh
+    reads the stored leaves. An int8 leaf's codes are gathered and
+    dequantized to the compute dtype with the slice of its whole scale
+    that they read (``quant.local_scale``)."""
+
+    def __init__(self, params, cfg: ModelConfig, mesh):
+        self.params, self.cfg, self.mesh = params, cfg, mesh
+        if mesh is not None:
+            self.specs = param_specs(model_decls(cfg, mesh.ax))
+            self.axes = (("data",) if tp.tp_mesh(mesh) is not None
+                         else ("data", "model"))
+
+    def one(self, t, spec, axes=None):
+        mesh = self.mesh
+        axes = self.axes if axes is None else axes
+        if isinstance(t, QuantizedArray):
+            q = self.one(t.q, spec, axes)
+            rest = tuple(None if e is not None and mesh.key(e) in axes
+                         else e for e in spec)
+            return QuantizedArray(q, local_scale(t.s, rest, mesh, q.shape)
+                                  ).to(self.cfg.cdtype)
+        for dim, e in enumerate(spec):
+            if e is not None and mesh.key(e) in axes and mesh.size(e) > 1:
+                t = mesh.all_gather(t, e, dim)
+        return t
+
+    def layer(self, name, i):
+        """Layer ``i`` of a stacked tree."""
+        if self.mesh is None:
+            return _layer(self.params[name], i)
+        return tree_map(lambda t, s: self.one(t[i], s[1:]),
+                        self.params[name], self.specs[name])
+
+    def shared(self, name):
+        """An unstacked layer tree (the hybrid's shared attention)."""
+        if self.mesh is None:
+            return self.params[name]
+        return tree_map(self.one, self.params[name], self.specs[name])
+
+    def top(self, name):
+        """A leaf outside the layer stacks, whole."""
+        if self.mesh is None:
+            return self.params[name]
+        return self.one(self.params[name], self.specs[name],
+                        ("data", "model"))
+
+
+def _embed_decode(dl: _DecodeLeaves, token, cfg: ModelConfig):
+    """The token's embedding. On a model axis of more than one rank that
+    cuts the vocabulary, each rank looks up the tokens of its rows of the
+    table (gathered over the data axes only) and the rows are summed over
+    ``model`` (exact: one nonzero a token), so that a step of B tokens
+    does not gather the whole (V, d) table; else from the whole table."""
+    mesh = dl.mesh
+    spec = None if mesh is None else dl.specs["embedding"]
+    if tp.tp_mesh(mesh) is None or spec[0] is None:
+        return embed_apply({"embedding": dl.top("embedding")}, token, cfg)
+    w = dl.one(dl.params["embedding"], spec, ("data",)).to(cfg.cdtype)
+    n = w.shape[0]
+    ids = token.long() - mesh.axis_index("model") * n
+    inside = ((ids >= 0) & (ids < n))[..., None]
+    x = torch.where(inside, F.embedding(ids.clamp(0, n - 1), w), 0)
+    x = mesh.psum(x.float(), "model").to(cfg.cdtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
+    return x
+
+
+def _cross_attention_decode(p, x, enc_out, cfg: ModelConfig, mesh, spec):
+    """``_cross_attention`` of one token on a mesh whose ``enc_out`` cache
+    (B, S, d) is cut along d over ``model`` (and along S over data when B
+    does not divide): never gathered. ``enc_out @ wk`` (and wv) is a
+    partial product over ``model``, so wk and wv are re-cut by rows to
+    match (one all-to-all of the stored column shards) and the float32
+    partial sums are reduce-scattered to the rank's KV heads where they
+    divide (else all-reduced and the rank's KV heads taken), then rounded
+    once. Each rank attends with its query heads (``attention.
+    tp_heads``), over its slots combined over data when S is cut, and
+    ``wo`` is row-parallel."""
+    from ..launch.dist import _split
+    s_cut, tpn = attn.cut_layout(mesh, spec, cfg.d_model)
+    if tpn == 1 and not s_cut:
+        return _cross_attention(p, x, enc_out, cfg)
+    B, D, cd = x.shape[0], cfg.head_dim, cfg.cdtype
+    j = mesh.axis_index("model")
+    decls = attn.attn_decls(cfg, ax=mesh.ax)
+    pt, lcfg, tmesh = attn.tp_heads(p, cfg, mesh)
+    kl = lcfg.n_kv_heads
+    mine = tp.kv_heads(cfg.n_heads, cfg.n_kv_heads, tpn, j) \
+        if tmesh is not None else list(range(cfg.n_kv_heads))
+    scatter = tmesh is not None and mine == list(range(j * kl, (j + 1) * kl))
+
+    def kv_of(name):
+        w, wspec = p[name], decls[name].spec
+        if tpn > 1:
+            dl = cfg.d_model // tpn
+            w = (mesh.recut(w, "model", 0, 1) if _split(wspec[1], mesh.ax) > 1
+                 else w[j * dl:(j + 1) * dl])
+        e2 = enc_out.reshape(-1, enc_out.shape[-1])
+        part = (e2 @ w.to(cd) if cd == torch.float32
+                else tp._mm32(e2, w.to(cd)))
+        part = part.reshape(*enc_out.shape[:2], -1)
+        if scatter:
+            part = mesh.reduce_scatter(part, "model", 2)
+        else:
+            if tpn > 1:
+                part = mesh.psum(part, "model")
+            part = part.reshape(*part.shape[:2], cfg.n_kv_heads, D)[
+                :, :, mine].reshape(*part.shape[:2], -1)
+        return part.to(cd).reshape(*enc_out.shape[:2], kl, D)
+
+    k, v = kv_of("wk"), kv_of("wv")
+    hl = lcfg.n_heads
+    q = tp.proj(tmesh, x, pt["wq"].to(cd))
+    qg = (q.float() * D ** -0.5).reshape(B, kl, hl // kl, D)
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k.float())
+    vf = v.float()
+    o = attn.softmax_pv(s, lambda pr: torch.einsum("bkgl,blkd->bkgd", pr, vf),
+                        mesh, s_cut)
+    o, wo = o.reshape(B, 1, hl * D).to(cd), pt["wo"].to(cd)
+    return o @ wo if tmesh is None else tp.row_parallel(tmesh, o, wo)
+
+
+def _attn_step(h, lp, lc, pos, cfg, *, moe=False, mla=False, mesh=None,
+               spec=None):
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
     if mla:
-        a, _ = mla_mod.mla_decode_step(lp["attn"], hn, pos, lc, cfg)
+        a, _ = mla_mod.mla_decode_step(lp["attn"], hn, pos, lc, cfg,
+                                       mesh=mesh, spec=spec)
     else:
         a, _ = attn.attention_decode_step(lp["attn"], hn, pos, lc, cfg,
-                                          window=_window(cfg))
+                                          window=_window(cfg), mesh=mesh,
+                                          spec=spec)
     h = h + a
     hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
     if moe:
-        f, _ = moe_mod.moe_ffn(lp["ffn"], hn, cfg)
+        f, _ = moe_mod.moe_ffn(lp["ffn"], hn, cfg, mesh=mesh)
     else:
-        f = ffn_apply(lp["ffn"], hn, cfg)
+        f = ffn_apply(lp["ffn"], hn, cfg, mesh=mesh)
     return h + f
 
 
-def _dec_step(h, lp, lc, pos, enc_out, cfg):
+def _dec_step(h, lp, lc, pos, enc_out, cfg, *, mesh=None, spec=None,
+              enc_spec=None):
     """One encdec decoder layer on one token: self-attention, then
     cross-attention, then the FFN (the reference's decode order; its
     forward runs the FFN before the cross-attention)."""
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    a, _ = attn.attention_decode_step(lp["attn"], hn, pos, lc, cfg)
+    a, _ = attn.attention_decode_step(lp["attn"], hn, pos, lc, cfg,
+                                      mesh=mesh, spec=spec)
     h = h + a
     hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
-    h = h + _cross_attention(lp["xattn"], hx, enc_out, cfg)
+    h = h + (_cross_attention(lp["xattn"], hx, enc_out, cfg) if mesh is None
+             else _cross_attention_decode(lp["xattn"], hx, enc_out, cfg,
+                                          mesh, enc_spec))
     hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + ffn_apply(lp["ffn"], hn, cfg)
+    return h + ffn_apply(lp["ffn"], hn, cfg, mesh=mesh)
 
 
-def _mamba_step(h, lp, lc, cfg):
+def _mamba_step(h, lp, lc, cfg, *, mesh=None, spec=None):
     hn = rms_norm(h, lp["ln"], cfg.norm_eps)
-    y, _ = ssm_mod.mamba_decode_step(lp["mix"], hn, lc, cfg)
+    y, _ = ssm_mod.mamba_decode_step(lp["mix"], hn, lc, cfg, mesh=mesh,
+                                     spec=spec)
     return h + y
 
 
-def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
+def _layer_spec(spec):
+    """A stacked cache leaf's per-layer spec; the decode step computes in
+    no cache cut along its layer dim (the reference's rule cuts it over
+    data when the layer count equals the batch)."""
+    if spec[0] is not None:
+        raise ValueError(f"cache spec {spec}: cut along its layer dim")
+    return spec[1:]
+
+
+def decode_step(params, token, pos: int, cache, cfg: ModelConfig,
+                mesh=None, seq_len: int | None = None):
     """token: (B,1) integer tensor; pos: its absolute position, a Python
     int. Writes the new token's entries into ``cache`` in place and
-    returns (float32 logits (B,1,V), cache)."""
-    x = embed_apply(params, token, cfg)
+    returns (float32 logits (B,1,V), cache).
+
+    With ``mesh`` (a ``launch/dist.ProcessMesh``) ``params`` are the
+    rank's shards (int8 ones from ``quant.quantize_params(mesh=)``),
+    ``token`` is the global (B, 1) batch, of which the rank takes its rows
+    over the data axes (all of them when B does not divide), and
+    ``cache`` holds the rank's shards of the caches of ``seq_len``
+    positions (``init_cache``'s length, which the shards do not tell) in
+    the specs of ``cache_spec`` (the reference's
+    ``_cache_sharding_tree``). Every mixer
+    computes in the cut its cache has, and no cache leaf is gathered; the
+    layers' leaves are gathered over the data axes a layer at a time
+    (``_DecodeLeaves``); the residual stays replicated over ``model``.
+    The logits are the rank's rows', from the unembedding gathered whole.
+    """
+    specs = None
+    if mesh is not None:
+        if seq_len is None:
+            raise ValueError("a decode step on a mesh needs the caches' "
+                             "length (seq_len)")
+        B = token.shape[0]
+        mesh = mesh.for_batch(B)
+        # an entry over axes of one rank cuts nothing
+        specs = tree_map(lambda sp: tuple(
+            e if e is not None and mesh.ax.size(e) > 1 else None
+            for e in sp), cache_layout(cfg, cache, mesh.ax, B, seq_len))
+        token = mesh.batch_shard(token)
+    dl = _DecodeLeaves(params, cfg, mesh)
+
+    def lc(name, i):
+        """Layer i's cache views and (on a mesh) their specs."""
+        return _layer(cache[name], i), (
+            None if specs is None else tree_map(_layer_spec, specs[name]))
+
+    x = _embed_decode(dl, token, cfg)
     fam = cfg.family
     if fam == "hybrid":
         pat, n_macro = _hybrid(cfg)
+        shared = dl.shared("shared_attn")
         for i in range(n_macro):
             mi = 0
             for ch in pat:
                 if ch == "a":
-                    x = _attn_step(x, params["shared_attn"],
-                                   _layer(cache["attn"], i), pos, cfg)
+                    c, cs = lc("attn", i)
+                    x = _attn_step(x, shared, c, pos, cfg, mesh=mesh,
+                                   spec=cs)
                 else:
                     name = f"mamba{mi}"
-                    x = _mamba_step(x, _layer(params[name], i),
-                                    _layer(cache[name], i), cfg)
+                    c, cs = lc(name, i)
+                    x = _mamba_step(x, dl.layer(name, i), c, cfg,
+                                    mesh=mesh, spec=cs)
                     mi += 1
     elif fam == "moe":
         nd = cfg.n_dense_layers
         dcfg = _dense_cfg(cfg)
         for i in range(cfg.n_layers):
-            lc = _layer(cache["layers"], i)
+            c, cs = lc("layers", i)
             if i < nd:
-                x = _attn_step(x, _layer(params["dense_layers"], i), lc,
-                               pos, dcfg, mla=True)
+                x = _attn_step(x, dl.layer("dense_layers", i), c, pos,
+                               dcfg, mla=True, mesh=mesh, spec=cs)
             else:
-                x = _attn_step(x, _layer(params["moe_layers"], i - nd), lc,
-                               pos, cfg, moe=True, mla=True)
+                x = _attn_step(x, dl.layer("moe_layers", i - nd), c, pos,
+                               cfg, moe=True, mla=True, mesh=mesh, spec=cs)
     elif fam == "encdec":
+        enc_spec = None if specs is None else specs["enc_out"]
         for i in range(cfg.dec_layers):
-            x = _dec_step(x, _layer(params["dec_layers"], i),
-                          _layer(cache["self"], i), pos, cache["enc_out"],
-                          cfg)
+            c, cs = lc("self", i)
+            x = _dec_step(x, dl.layer("dec_layers", i), c, pos,
+                          cache["enc_out"], cfg, mesh=mesh, spec=cs,
+                          enc_spec=enc_spec)
     else:
         for i in range(cfg.n_layers):
-            lp, lc = _layer(params["layers"], i), _layer(cache["layers"], i)
+            c, cs = lc("layers", i)
+            lp = dl.layer("layers", i)
             if fam == "ssm":
-                x = _mamba_step(x, lp, lc, cfg)
+                x = _mamba_step(x, lp, c, cfg, mesh=mesh, spec=cs)
             else:
-                x = _attn_step(x, lp, lc, pos, cfg)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_from_hidden(h, params, cfg), cache
+                x = _attn_step(x, lp, c, pos, cfg, mesh=mesh, spec=cs)
+    h = rms_norm(x, dl.top("final_norm"), cfg.norm_eps)
+    name = "embedding" if cfg.tie_embeddings else "lm_head"
+    return logits_from_hidden(h, {name: dl.top(name)}, cfg), cache

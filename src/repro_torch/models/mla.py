@@ -128,10 +128,70 @@ def mla_train(p, x, positions, cfg: ModelConfig, *, mesh=None):
     return o @ wo if mesh is None else tp.row_parallel(mesh, o, wo)
 
 
-def mla_decode_step(p, x, pos: int, cache, cfg: ModelConfig):
+def _decode_on_mesh(p, x, pos, cache, cfg: ModelConfig, mesh, spec):
+    """``mla_decode_step`` on a mesh whose latent and rope caches are cut
+    along their last dims over ``model`` (and along L over data when B
+    does not divide). The queries are the rank's heads (``tp_heads``);
+    the new token's latent and rope key are computed whole (RoPE sees all
+    rope dims) and each rank writes its slices. The absorbed query and the
+    rope query are all-gathered over ``model`` to every head, each rank's
+    two partial score terms over its r_kv and rope slices are summed over
+    ``model`` in float32, and ctx (B, H, r_kv) comes out cut along r_kv;
+    it is all-gathered back to the rank's heads, so ``w_uv`` stays in its
+    stored cut by heads (a cut along r_kv would move weights every
+    step)."""
+    from .attention import cut_layout, softmax_pv
+    s_cut, tpn = cut_layout(mesh, spec["c_kv"], cfg.kv_lora_rank)
+    cut_layout(mesh, spec["k_rope"], cfg.rope_head_dim)
+    B, Sl = x.shape[0], cache["c_kv"].shape[1]
+    nope, rope = cfg.head_dim, cfg.rope_head_dim
+    j, off = mesh.axis_index("model"), (mesh.axis_index("data") * Sl
+                                        if s_cut else 0)
+    rl, el = cfg.kv_lora_rank // tpn, rope // tpn
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    pt, lcfg, tmesh = tp_heads(p, cfg, mesh)
+    q_nope, q_rope = _queries(pt, x, positions, lcfg, tmesh)
+    c_new, kr_new = _latent(pt, x, positions, lcfg, tmesh)
+    if off <= pos < off + Sl:
+        cache["c_kv"][:, pos - off] = c_new[:, 0, j * rl:(j + 1) * rl]
+        cache["k_rope"][:, pos - off] = kr_new[:, 0, j * el:(j + 1) * el]
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
+                         pt["w_uk"].to(cfg.cdtype))
+    q_r = q_rope[:, 0]
+    if tmesh is not None:
+        q_abs = mesh.all_gather(q_abs, "model", 1)
+        q_r = mesh.all_gather(q_r, "model", 1)
+    q_abs, q_r = q_abs[..., j * rl:(j + 1) * rl], q_r[..., j * el:(j + 1) * el]
+    cf = cache["c_kv"].float()
+    s = (torch.einsum("bhr,blr->bhl", q_abs.float(), cf)
+         + torch.einsum("bhe,ble->bhl", q_r.float(),
+                        cache["k_rope"].float()))
+    if tpn > 1:
+        s = mesh.psum(s, "model")
+    s = s * (nope + rope) ** -0.5
+    valid = off + torch.arange(Sl, device=x.device) <= pos
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    ctx = softmax_pv(s, lambda a: torch.einsum("bhl,blr->bhr", a, cf), mesh,
+                     s_cut).to(cfg.cdtype)
+    if tpn > 1:
+        ctx = mesh.all_gather(ctx, "model", 2)
+    hl = lcfg.n_heads
+    if tmesh is not None:
+        ctx = ctx[:, j * hl:(j + 1) * hl]
+    o = torch.einsum("bhr,rhd->bhd", ctx, pt["w_uv"].to(cfg.cdtype))
+    o, wo = o.reshape(B, 1, hl * cfg.v_head_dim), pt["wo"].to(cfg.cdtype)
+    return o @ wo if tmesh is None else tp.row_parallel(tmesh, o, wo)
+
+
+def mla_decode_step(p, x, pos: int, cache, cfg: ModelConfig, *, mesh=None,
+                    spec=None):
     """Absorbed decode. x: (B,1,d); pos: the absolute position, a Python
     int; cache: {'c_kv': (B,L,r_kv), 'k_rope': (B,L,rope)}, written in
-    place at ``pos``. Returns (y, cache)."""
+    place at ``pos``. Returns (y, cache). On a mesh that cuts the caches
+    (``spec``: their per-layer specs): ``_decode_on_mesh``."""
+    if mesh is not None and (tp.tp_mesh(mesh) is not None
+                             or spec["c_kv"][1] is not None):
+        return _decode_on_mesh(p, x, pos, cache, cfg, mesh, spec), cache
     B = x.shape[0]
     L = cache["c_kv"].shape[1]
     H, nope, rope, vd = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,

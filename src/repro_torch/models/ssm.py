@@ -156,10 +156,105 @@ def mamba_block(p, x, cfg: ModelConfig, *, mesh=None):
     return y @ w if mesh is None else tp.row_parallel(mesh, y, w)
 
 
-def mamba_decode_step(p, x, cache, cfg: ModelConfig):
+def _decode_on_mesh(p, x, cache, cfg: ModelConfig, mesh, spec):
+    """``mamba_decode_step`` on a mesh whose state (B, H, P, N) is cut
+    along N over ``model`` (and along H or P over data when B does not
+    divide) and whose conv cache (B, W-1, conv_ch) is cut along conv_ch
+    over ``model``, straight through [x | B | C]. z, x and dt come from
+    the rank's in_proj columns (``tp_mixer``); x and dt are all-gathered
+    over ``model`` (B x d_inner), B and C are whole. Each rank convolves x
+    and its N-slices of B and C, on the conv rows it fetches with
+    ``take`` (three rows), and writes back only its own conv slice. It
+    updates its slice of the state, and y = C·S is a float32 partial sum
+    over ``model``; D·x is added once, after the sum. y is gathered over
+    data where the state cuts H or P, then each rank takes its heads for
+    the gated norm (its sum of squares over ``model``) and the
+    row-parallel out_proj."""
+    tpn = mesh.size("model")
+    if (tpn > 1 and any(s[-1] is None or mesh.key(s[-1]) != "model"
+                        for s in spec.values())) or spec["conv"][1] \
+            is not None or cfg.ssm_state % tpn:
+        raise ValueError(f"cache specs {spec}: the decode step computes in "
+                         "a state cut along N and a conv cache cut along "
+                         "its channels over model")
+    h_cut, p_cut = (spec["ssm"][i] is not None for i in (1, 2))
+    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    cd, Bsz = cfg.cdtype, x.shape[0]
+    j, Nl = mesh.axis_index("model"), N // tpn
+    pt, hl, tmesh = tp_mixer({k: p[k] for k in ("in_proj", "norm",
+                                                "out_proj")}, cfg, mesh)
+    f = hl * Pd
+    h = tp.proj(tmesh, x, pt["in_proj"].to(cd))
+    z, xin, bc, dt = (h[..., :f], h[..., f:2 * f], h[..., 2 * f:2 * f + 2 * N],
+                      h[..., 2 * f + 2 * N:])
+    if tmesh is not None:
+        xin = mesh.all_gather(xin, "model", 2)
+        dt = mesh.all_gather(dt, "model", 2)
+    xbc = torch.cat([xin, bc], dim=-1)                 # (B, 1, conv_ch)
+
+    def chans(r):
+        return [(0, di), (di + r * Nl, di + (r + 1) * Nl),
+                (di + N + r * Nl, di + N + (r + 1) * Nl)]
+
+    state = cache["conv"]
+    if tpn > 1:
+        state = mesh.take(state, "model", 2, [chans(r) for r in range(tpn)])
+    idx = torch.cat([torch.arange(a, b, device=x.device)
+                     for a, b in chans(j)])
+    if tpn == 1:
+        state = state[..., idx]
+    conv, _ = _causal_conv(xbc[..., idx], p["conv_w"][:, idx].to(cd),
+                           p["conv_b"][idx].to(cd), state=state)
+    cw = cache["conv"].shape[2]
+    own = torch.cat([cache["conv"][:, 1:], xbc[..., j * cw:(j + 1) * cw]],
+                    dim=1)
+    hs = slice(None)
+    ps = slice(None)
+    Hs, Ps = cache["ssm"].shape[1:3]
+    if h_cut:
+        hs = slice(mesh.axis_index("data") * Hs, (mesh.axis_index("data")
+                                                  + 1) * Hs)
+    if p_cut:
+        ps = slice(mesh.axis_index("data") * Ps, (mesh.axis_index("data")
+                                                  + 1) * Ps)
+    xs = conv[:, 0, :di].reshape(Bsz, H, Pd).float()[:, hs, ps]
+    Bmat = conv[:, 0, di:di + Nl].float()
+    Cmat = conv[:, 0, di + Nl:].float()
+    dtv = ssd_kernel.softplus((dt[:, 0] + p["dt_bias"]).float())[:, hs]
+    dA = torch.exp(dtv * -torch.exp(p["A_log"].float())[hs])
+    S = cache["ssm"].float()
+    S = S * dA[:, :, None, None] + torch.einsum("bh,bn,bhp->bhpn", dtv,
+                                                Bmat, xs)
+    y = torch.einsum("bn,bhpn->bhp", Cmat, S)
+    if tpn > 1:
+        y = mesh.psum(y, "model")
+    y = y + p["D"].float()[None, hs, None] * xs
+    if h_cut:
+        y = mesh.all_gather(y, "data", 1)
+    if p_cut:
+        y = mesh.all_gather(y, "data", 2)
+    y = y.reshape(Bsz, 1, di).to(cd)
+    cache["conv"].copy_(own)
+    cache["ssm"].copy_(S)
+    w = pt["out_proj"].to(cd)
+    if tmesh is None:
+        y = rms_norm(y * silu(z.float()).to(y.dtype), pt["norm"],
+                     cfg.norm_eps)
+        return y @ w
+    y = _gated_norm(y[..., j * f:(j + 1) * f], z, pt["norm"], cfg, tmesh)
+    return tp.row_parallel(tmesh, y, w)
+
+
+def mamba_decode_step(p, x, cache, cfg: ModelConfig, *, mesh=None,
+                      spec=None):
     """x: (B,1,d). cache: {'conv': (B,W-1,conv_ch), 'ssm': (B,H,P,N)},
     written in place. The state update runs in float32 and y rounds to the
-    compute dtype once, after the D * x skip. Returns (out, cache)."""
+    compute dtype once, after the D * x skip. Returns (out, cache). On a
+    mesh that cuts the caches (``spec``: their per-layer specs):
+    ``_decode_on_mesh``."""
+    if mesh is not None and (tp.tp_mesh(mesh) is not None or any(
+            e is not None for e in spec["ssm"][1:3])):
+        return _decode_on_mesh(p, x, cache, cfg, mesh, spec), cache
     Bsz = x.shape[0]
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     h = x @ p["in_proj"].to(cfg.cdtype)

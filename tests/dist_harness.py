@@ -9,8 +9,9 @@ the test on one numpy input file:
       4 CPU processes on a (2, 2) mesh, one torch thread each, and one
       world of 1 process on a (1, 1) mesh
 
-IN is a pickle of the numpy parameters and batches of each case, and of
-two checkpoint directories (``"ckpt"``); OUT a pickle of the losses,
+IN is a pickle of the numpy parameters, batches and decode prompts of
+each case, and of two checkpoint directories (``"ckpt"``); OUT a pickle
+of the losses,
 gradients, updated parameters and AdamW states, whole (the port's
 gathered over the groups that cut each leaf), the prefill step's
 last-position logits of each case (the port's rows gathered over data),
@@ -19,6 +20,18 @@ each ``TRAIN`` case counted (``repro_torch.tally``, by group and kind),
 each rank's ``FlopCounterMode`` FLOPs of its loss and gradients, and the
 leaves it gathered over ``model``. Every model copy is float32 with
 ``fsdp=True`` (``case_config``).
+
+Each side also decodes every ``DECODE`` case at B 4 and at B 1
+(``decode_config``): a teacher-forced prompt, then greedy tokens. The
+reference runs ``decode_step`` jitted on its mesh with the caches placed
+by its ``_cache_sharding_tree`` (deepseek at B 1 without a mesh: its
+expert-parallel ``shard_map`` cannot cut one token over data) and returns
+the tokens it fed, the logits of every step and its caches; the port's
+worlds are fed the same tokens (``lm.decode_step(mesh=)``) and return
+their logits (gathered over data), the caches (gathered after the run),
+the router's top-k margins, and the collectives whose input was a cache
+leaf. The (1, 1) world also runs the unsharded decode, and the (2, 2)
+world counts one serve step's collectives and gathers its int8 leaves.
 
 Checkpoints cross between the two sides: the reference saves the
 ``CKPT_CASE`` state after its train steps with its ``save_pytree`` into
@@ -56,6 +69,37 @@ STEPS = 2
 CKPT_CASE = "gemma_int8"     # float32 params, int8 moments in global blocks
 B, S = 4, 64
 TIE_ULPS = 256       # tests/test_torch_zoo.py's near-tie margin
+
+
+# the decode cases: every CASES entry, gemma_int8 serving int8 weights on
+# a copy widened so that its projections qualify (d_model 256), and qwen3
+# with sliding-window attention over a ring of 16 slots that its steps
+# wrap; (prompt, generated) tokens of each, at each batch
+DECODE = (*CASES, "qwen3_swa")
+DECODE_BATCHES = (4, 1)
+DECODE_LENGTHS = {"qwen3_swa": (8, 12)}
+PROMPT, GENERATED = 6, 4
+TALLY_CASE = "gemma"     # the decode case whose serve step is counted
+
+
+def decode_config(configs, name):
+    cfg = case_config(configs, "qwen3" if name == "qwen3_swa" else name)
+    if name == "qwen3_swa":
+        return cfg.replace(attention="swa", window=16)
+    if name == "gemma_int8":
+        return cfg.replace(d_model=256, d_ff=512, head_dim=64,
+                           serve_quant="int8")
+    return cfg
+
+
+def decode_lengths(name):
+    return DECODE_LENGTHS.get(name, (PROMPT, GENERATED))
+
+
+def decode_params_of(inp, name):
+    """The numpy parameters of a decode case."""
+    base = "qwen3" if name == "qwen3_swa" else name
+    return inp[base].get("decode_params", inp[base]["params"])
 
 
 def case_config(configs, name):
@@ -111,6 +155,9 @@ def run_ref(inp):
 
     mesh = make_mesh((2, 2), ("data", "model"))
     ax = axis_env_for_mesh(mesh)
+    # the unsharded decode: one device, Auto axes as tests/test_torch_zoo.py
+    one = jax.make_mesh((1, 1), ("data", "model"), axis_types=(
+        jax.sharding.AxisType.Auto,) * 2, devices=jax.devices()[:1])
     out = {}
     for name in CASES:
         cfg = case_config(configs, name)
@@ -147,7 +194,64 @@ def run_ref(inp):
                           for kp, v in jax.tree_util.tree_flatten_with_path(
                               res[k])[0]}
         out[name] = res
+    out["decode"] = {}
+    for name in DECODE:
+        cfg = decode_config(configs, name)
+        flat, tdef = jax.tree_util.tree_flatten_with_path(
+            model_decls(cfg, ax), is_leaf=lambda x: isinstance(x, ParamDecl))
+        params = jax.tree_util.tree_unflatten(tdef, [
+            jnp.asarray(decode_params_of(inp, name)[
+                jax.tree_util.keystr(kp)]) for kp, _ in flat])
+        if cfg.serve_quant == "int8":
+            from repro.models.quant import quantize_params
+            params = quantize_params(params)
+            out["decode"][f"{name}/quantized"] = {
+                jax.tree_util.keystr(kp): np.asarray(v) for kp, v in
+                jax.tree_util.tree_flatten_with_path(params)[0]}
+        base = "qwen3" if name == "qwen3_swa" else name
+        for B in DECODE_BATCHES:
+            prompt = inp[base]["prompt"][:B, :decode_lengths(name)[0]]
+            # one token of an expert-parallel MoE does not cut over data
+            on = not (B == 1 and cfg.n_experts)
+            m = mesh if on else one
+            out["decode"][f"{name}/{B}"] = ref_decode(
+                cfg, params, prompt, decode_lengths(name)[1],
+                axis_env_for_mesh(m), m)
     return out
+
+
+def ref_decode(cfg, params, prompt, gen, ax, mesh):
+    """The reference's greedy decode of ``prompt`` (teacher-forced), then
+    ``gen`` tokens: {"fed": the (B, P + gen - 1) tokens it fed, "logits":
+    (B, P + gen - 1, V) float32, "cache": its final caches by path}."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch.steps import _cache_sharding_tree
+    from repro.models import decode_step, init_cache
+    B, P = prompt.shape
+    L = P + gen
+    cache = init_cache(cfg, B, L)
+    if cfg.family == "encdec":
+        cache["enc_out"] = jnp.ones((B, L, cfg.d_model), cfg.cdtype)
+    if mesh is not None:
+        placed = _cache_sharding_tree(cfg, jax.eval_shape(lambda: cache),
+                                      mesh, B)
+        cache = jax.device_put(cache, jax.tree.map(lambda a: a.sharding,
+                                                   placed))
+    step = jax.jit(lambda p, t, pos, c: decode_step(p, t, pos, c, cfg, ax,
+                                                    mesh))
+    tok, fed, logits = prompt[:, :1], [], []
+    for pos in range(L - 1):
+        fed.append(tok[:, 0])
+        lg, cache = step(params, jnp.asarray(tok), jnp.int32(pos), cache)
+        lg = np.asarray(lg[:, 0], np.float32)
+        logits.append(lg)
+        tok = (prompt[:, pos + 1:pos + 2] if pos + 1 < P
+               else lg.argmax(-1).astype(np.int32)[:, None])
+    return {"fed": np.stack(fed, 1), "logits": np.stack(logits, 1),
+            "cache": {jax.tree_util.keystr(kp): np.asarray(v, np.float32)
+                      for kp, v in jax.tree_util.tree_flatten_with_path(
+                          cache)[0]}}
 
 
 # ---------------------------------------------------------------------------
@@ -350,11 +454,165 @@ def _rows(batch) -> int:
     return batch["tokens"].shape[0]
 
 
+@contextlib.contextmanager
+def cache_collectives(cache):
+    """The (kind, path) of each collective inside the block whose input is
+    a leaf of ``cache`` (or a view of one): every all-gather, and the
+    all-to-alls of ``take`` and ``recut``."""
+    from repro_torch.launch import dist
+    from repro_torch.models.common import tree_leaves
+    path_of = {t.untyped_storage().data_ptr(): p
+               for p, t in tree_leaves(cache)}
+    seen = []
+    gather, take, recut = (dist._gather, dist.ProcessMesh.take,
+                           dist.ProcessMesh.recut)
+
+    def note(kind, t):
+        p = path_of.get(t.untyped_storage().data_ptr())
+        if p is not None:
+            seen.append((kind, p))
+
+    def gathering(x, *a, **k):
+        note("all-gather", x)
+        return gather(x, *a, **k)
+
+    def taking(self, x, *a, **k):
+        note("take", x)
+        return take(self, x, *a, **k)
+
+    def recutting(self, x, *a, **k):
+        note("recut", x)
+        return recut(self, x, *a, **k)
+
+    dist._gather, dist.ProcessMesh.take, dist.ProcessMesh.recut = (
+        gathering, taking, recutting)
+    try:
+        yield seen
+    finally:
+        dist._gather, dist.ProcessMesh.take, dist.ProcessMesh.recut = (
+            gather, take, recut)
+
+
+def port_decode(cfg, params, fed, mesh=None):
+    """The port's decode fed the tokens ``fed`` (B, steps): the logits of
+    every step (all rows; the mesh's gathered over data), the final
+    caches (gathered whole), the router's top-k margins in float32 ulps,
+    and, on a mesh, the collectives that took a cache leaf."""
+    import torch
+    from repro_torch.launch.steps import init_cache_shards
+    from repro_torch.models import lm
+    from repro_torch.models import moe as pmoe
+    from repro_torch.models.common import tree_leaves
+    B, steps = fed.shape
+    L = steps + 1
+    margins, route = [], pmoe.route
+
+    def recording(xf, router_w, c):
+        probs, gates, ids = route(xf, router_w, c)
+        p = probs.sort(dim=-1, descending=True).values
+        pk, pk1 = p[:, c.top_k - 1].numpy(), p[:, c.top_k].numpy()
+        margins.append(float(((pk - pk1) / np.spacing(pk)).min()))
+        return probs, gates, ids
+
+    pmoe.route = recording
+    logits = []
+    try:
+        with torch.inference_mode():
+            if mesh is None:
+                cache = lm.init_cache(cfg, B, L, device="cpu")
+            else:
+                cache = init_cache_shards(cfg, B, L, mesh)
+            if cfg.family == "encdec":
+                cache["enc_out"].fill_(1)
+            with (cache_collectives(cache) if mesh is not None
+                  else contextlib.nullcontext([])) as seen:
+                for pos in range(steps):
+                    lg, cache = lm.decode_step(
+                        params, torch.from_numpy(fed[:, pos:pos + 1]), pos,
+                        cache, cfg, mesh=mesh, seq_len=L)
+                    if mesh is not None and mesh.for_batch(B).split_data:
+                        lg = mesh.all_gather(lg, "data", 0)
+                    logits.append(lg[:, 0].numpy())
+            if mesh is not None:
+                specs = lm.cache_layout(cfg, cache, mesh.ax, B, L)
+                cache = {p: mesh.gather(t, s) for (p, t), (_, s) in
+                         zip(tree_leaves(cache), tree_leaves(specs))}
+            else:
+                cache = dict(tree_leaves(cache))
+    finally:
+        pmoe.route = route
+    return {"logits": np.stack(logits, 1), "margins": margins,
+            "cache_collectives": list(seen),
+            "cache": {p: t.float().numpy() for p, t in cache.items()}}
+
+
+def _decode_params(pm, inp, name, cfg, shard=True):
+    """The case's parameters: the rank's shards (int8 ones quantized on
+    the mesh), or one device's tree."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_from_leaves
+    from repro_torch.models.quant import quantize_params
+    tree = tree_from_leaves(lm.model_decls(cfg), decode_params_of(inp, name))
+    if not shard:
+        params = lm.lm_params_from_numpy(tree, cfg, device="cpu")
+        return (quantize_params(params) if cfg.serve_quant == "int8"
+                else params)
+    decls = lm.model_decls(cfg, pm.ax)
+    params = lm.shard_params(tree, decls, pm.ax, pm.coords, device="cpu")
+    if cfg.serve_quant == "int8":
+        params = quantize_params(params, mesh=pm, decls=decls)
+    return params
+
+
+def _decode_cases(pm, inp, ref_fed):
+    """Every decode case on this world, fed the reference's tokens."""
+    from repro_torch import configs
+    out = {}
+    for name in DECODE:
+        cfg = decode_config(configs, name)
+        params = _decode_params(pm, inp, name, cfg)
+        for B in DECODE_BATCHES:
+            out[f"{name}/{B}"] = port_decode(cfg, params,
+                                             ref_fed[f"{name}/{B}"], pm)
+    return out
+
+
+def _decode_extras(pm, inp):
+    """One serve step's collectives (``TALLY_CASE`` at B 4) and the int8
+    case's codes and scales gathered whole."""
+    import torch
+    from repro_torch import configs, tally
+    from repro_torch.launch.steps import init_cache_shards, make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.quant import QuantizedArray
+    cfg = decode_config(configs, TALLY_CASE)
+    params = _decode_params(pm, inp, TALLY_CASE, cfg)
+    B, (P, G) = 4, decode_lengths(TALLY_CASE)
+    with torch.inference_mode():
+        cache = init_cache_shards(cfg, B, P + G, pm)
+        tok = torch.from_numpy(inp[TALLY_CASE]["prompt"][:B, :1])
+        with tally.counting() as counted:
+            make_serve_step(cfg, mesh=pm, seq_len=P + G)(params, tok, 0,
+                                                         cache)
+    out = {"decode_tally": pm.collectives_by_axis(counted)}
+    cfg = decode_config(configs, "gemma_int8")
+    params = _decode_params(pm, inp, "gemma_int8", cfg)
+    specs = dict(tree_leaves(lm.model_decls(cfg, pm.ax)))
+    with torch.inference_mode():
+        out["quantized"] = {
+            p: (pm.gather(t.q, specs[p].spec).numpy(), t.s.numpy())
+            for p, t in tree_leaves(params) if isinstance(t, QuantizedArray)}
+    return out
+
+
 def port_rank(pm, inp):
     import torch
     torch.set_num_threads(1)
     out = {"collectives": collectives(pm),
            "tp_collectives": tp_collectives(pm)}
+    out["decode"] = _decode_cases(pm, inp, inp["decode_fed"])
+    out.update(_decode_extras(pm, inp))
     for name in CASES:
         out[name] = _port_case(pm, name, inp[name], inp["ckpt"])
     # B 3 does not divide over the 2 data ranks: the batch is replicated
@@ -392,6 +650,15 @@ def one_device_rank(pm, inp):
                 "loss": [m["loss"].numpy() for m in ms],
                 "grad_norm": [m["grad_norm"].numpy() for m in ms],
                 "params": {p: t.numpy() for p, t in tree_leaves(params)}}
+    # the decode: the (1, 1) mesh path beside the unsharded one
+    out["decode/mesh"] = _decode_cases(pm, inp, inp["decode_fed"])
+    out["decode/plain"] = {}
+    for name in DECODE:
+        cfg = decode_config(configs, name)
+        params = _decode_params(pm, inp, name, cfg, shard=False)
+        for B in DECODE_BATCHES:
+            out["decode/plain"][f"{name}/{B}"] = port_decode(
+                cfg, params, inp["decode_fed"][f"{name}/{B}"])
     return out
 
 
@@ -403,6 +670,11 @@ def raises_on_rank_one(pm):
 
 def run_port(inp):
     from repro_torch.launch import dist
+    # the port's decode is fed the reference's tokens
+    with open(inp["ref_out"], "rb") as f:
+        ref = pickle.load(f)["decode"]
+    inp["decode_fed"] = {k: v["fed"] for k, v in ref.items()
+                         if "fed" in v}
     return {"2x2": dist.launch(port_rank, (2, 2), ("data", "model"), inp,
                                device="cpu", timeout=600),
             "1x1": dist.launch(one_device_rank, (1, 1), ("data", "model"),

@@ -48,13 +48,25 @@ same seeded numpy parameters:
     against the reference's ``make_prefill_step`` on its (2, 2) mesh;
   * the dry run (``launch/dryrun.py``): the collectives that one rank of
     a fake (2, 2) world counts on meta tensors for gemma-2b's int8 train
-    step equal those that the gloo world's ranks counted in the same
-    step.
+    step, and for gemma-2b's serve step, equal those that the gloo
+    world's ranks counted in the same step;
+  * the sharded decode (``lm.decode_step(mesh=)``): every ``DECODE`` case
+    of tests/dist_harness.py at B 4 (the batch cut over data) and B 1
+    (the caches' slots cut over data), fed the reference's tokens: each
+    step's logits and the final caches against the reference's decode on
+    its (2, 2) mesh (deepseek at B 1 against its unsharded decode, which
+    the reference's expert-parallel ``shard_map`` needs), the greedy
+    tokens equal outside near ties; no cache leaf gathered over any axis;
+    the (1, 1) world equal to the unsharded decode bit for bit; int8
+    serving weights quantized on the mesh equal to the reference's
+    ``quantize`` of each whole leaf; ``launch/serve.py --mesh 2x2`` prints
+    the sample of ``--mesh 1x1`` and of one device.
 
 Bounds as tests/test_torch_train.py: the loss within 1e-5 relative, each
 gradient within 1e-4 of its leaf's largest element; updated parameters
 within 1e-5 of each leaf's largest; the prefill logits as
-tests/test_torch_lm.py's float32 prefill step, 1e-4.
+tests/test_torch_lm.py's float32 prefill step, 1e-4; the decode's logits
+and caches as tests/test_torch_decode.py's float32 decode, 2e-5.
 """
 import os
 import pickle
@@ -96,6 +108,9 @@ CKPT_CLI = ["-m", "repro_torch.launch.train", "--arch", "qwen3-4b",
 CKPT_RUNS = {"whole": (5, "whole"), "stopped": (3, "cut"),
              "restarted": (5, "cut")}
 FLOPS_SHARE = 1.3
+F32 = {"atol": 2e-5, "rtol": 2e-5}  # tests/test_torch_decode.py's float32
+SERVE_CLI = ["-m", "repro_torch.launch.serve", "--arch", "qwen3-4b",
+             "--smoke", "--device", "cpu"]
 
 
 def _inputs():
@@ -114,7 +129,15 @@ def _inputs():
                 size=(dh.B, dh.S, cfg.d_model)).astype(np.float32)
         out[name] = {"params": dh.numpy_params(lm.model_decls(cfg),
                                                tree_leaves, seed=i),
-                     "batch": batch}
+                     "batch": batch,
+                     "prompt": rng.integers(0, cfg.vocab_size, (
+                         max(dh.DECODE_BATCHES), max(
+                             dh.decode_lengths(n)[0] for n in dh.DECODE))
+                     ).astype(np.int32)}
+        dcfg = dh.decode_config(tconfigs, name)
+        if lm.model_decls(dcfg) != lm.model_decls(cfg):
+            out[name]["decode_params"] = dh.numpy_params(
+                lm.model_decls(dcfg), tree_leaves, seed=50 + i)
     return out
 
 
@@ -127,6 +150,7 @@ def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist")
     inp = _inputs()
     inp["ckpt"] = {side: str(d / f"ckpt_{side}") for side in ("ref", "port")}
+    inp["ref_out"] = str(d / "ref.pkl")
     with open(d / "in.pkl", "wb") as f:
         pickle.dump(inp, f)
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -136,6 +160,8 @@ def runs(tmp_path_factory):
     cmds = {side: [harness, side, str(d / "in.pkl"), str(d / f"{side}.pkl")]
             for side in ("ref", "port")}
     cmds.update({m: CLI + [m] for m in ("2x2", "1x1")})
+    cmds.update({f"serve {m}": SERVE_CLI + (["--mesh", m] if m else [])
+                 for m in ("2x2", "1x1", "")})
     cmds.update({k: CKPT_CLI + ["--steps", str(n), "--ckpt-dir",
                                 str(d / sub)]
                  for k, (n, sub) in CKPT_RUNS.items()})
@@ -463,6 +489,111 @@ def test_dry_run_tally_matches_the_gloo_world(runs):
     assert rec["collectives_by_axis"]["model"]["all-reduce"]["count"] > 0
     for r in runs["port"]["2x2"]:
         assert r["gemma_int8"]["tally"] == rec["collectives_by_axis"]
+
+
+def test_dry_run_tally_of_the_serve_step_matches_the_gloo_world(runs):
+    """The same for gemma-2b's serve step at B 4 (the embedding looked up
+    by vocabulary rows, the heads' exchange and the score sums over
+    ``model``, the row-parallel sums, the next token gathered over
+    data): one rank of a fake (2, 2) world on meta tensors counts what
+    each rank of the gloo world counted in one step."""
+    from repro_torch.configs import ShapeSpec
+    cfg = dh.decode_config(tconfigs, dh.TALLY_CASE)
+    P, G = dh.decode_lengths(dh.TALLY_CASE)
+    rec = dryrun.evaluate(cfg, ShapeSpec("case", P + G, 4, "decode"), (2, 2))
+    assert rec["status"] == "ok"
+    assert rec["collectives_by_axis"]["model"]["all-reduce"]["count"] > 0
+    for r in runs["port"]["2x2"]:
+        assert r["decode_tally"] == rec["collectives_by_axis"]
+
+
+DECODE_RUNS = [f"{n}/{b}" for n in dh.DECODE for b in dh.DECODE_BATCHES]
+
+
+def _ulps_apart(logits):
+    """The gap of each row's two largest logits in float32 ulps of the
+    largest."""
+    top = np.sort(logits, axis=-1)[..., -2:]
+    return (top[..., 1] - top[..., 0]) / np.spacing(np.abs(top[..., 1]))
+
+
+@pytest.mark.parametrize("run", DECODE_RUNS)
+def test_mesh_decode_matches_reference(runs, run):
+    """Each rank of the (2, 2) world fed the reference's tokens: every
+    step's logits (all rows, gathered over data) and every cache leaf
+    after the run (gathered) within ``F32`` of the reference's decode on
+    its (2, 2) mesh (deepseek at B 1: its unsharded decode); the greedy
+    token of each step (the reference's next fed token) equal wherever
+    the reference's two largest logits lie more than ``TIE_ULPS`` apart;
+    the router's top-k margins at least that wide."""
+    ref = runs["ref"]["decode"][run]
+    P = dh.decode_lengths(run.split("/")[0])[0]
+    far = _ulps_apart(ref["logits"]) > dh.TIE_ULPS
+    for r in runs["port"]["2x2"]:
+        got = r["decode"][run]
+        np.testing.assert_allclose(got["logits"], ref["logits"], **F32)
+        want = ref["logits"].argmax(-1)
+        assert np.array_equal(got["logits"].argmax(-1)[far], want[far])
+        assert np.array_equal(want[:, P - 1:-1], ref["fed"][:, P:])
+        assert got["cache"].keys() == ref["cache"].keys()
+        for k, w in ref["cache"].items():
+            np.testing.assert_allclose(got["cache"][k], w, err_msg=k, **F32)
+        assert all(m > dh.TIE_ULPS for m in got["margins"])
+
+
+@pytest.mark.parametrize("name", dh.DECODE)
+def test_mesh_decode_gathers_no_cache_leaf(runs, name):
+    """Every mixer computes in the cut its cache has: no collective of the
+    decode steps takes a cache leaf but ``take``'s fetch of the conv
+    cache's three rows (the channels a rank convolves), at B 4 and B 1."""
+    for r in runs["port"]["2x2"]:
+        for b in dh.DECODE_BATCHES:
+            seen = r["decode"][f"{name}/{b}"]["cache_collectives"]
+            bad = [(k, p) for k, p in seen
+                   if not (k == "take" and p.endswith("['conv']"))]
+            assert not bad, bad
+            if dh.decode_config(tconfigs, name).ssm_state:
+                assert any(k == "take" for k, _ in seen)
+
+
+@pytest.mark.parametrize("run", DECODE_RUNS)
+def test_one_device_mesh_decode_equals_the_unsharded_decode(runs, run):
+    """On the (1, 1) world the mesh decode (``lm.decode_step(mesh=)``) is
+    the unsharded one: every step's logits and the final caches bit for
+    bit."""
+    got, want = (runs["port"]["1x1"][f"decode/{k}"][run]
+                 for k in ("mesh", "plain"))
+    assert np.array_equal(got["logits"], want["logits"])
+    assert got["cache"].keys() == want["cache"].keys()
+    for k, w in want["cache"].items():
+        assert np.array_equal(got["cache"][k], w), k
+
+
+def test_int8_weights_on_the_mesh_keep_the_global_scale(runs):
+    """gemma-2b's widened copy quantized on each rank of (2, 2)
+    (``quantize_params(mesh=)``; wq cut over both groups): each leaf's
+    codes, gathered, and its whole scale are the reference's ``quantize``
+    of the whole leaf, bit for bit."""
+    ref = runs["ref"]["decode"]["gemma_int8/quantized"]
+    for r in runs["port"]["2x2"]:
+        got = r["quantized"]
+        assert len(got) >= 4 and "['layers']['attn']['wq']" in got
+        for p, (q, s) in got.items():
+            np.testing.assert_array_equal(q, ref[f"{p}[<flat index 0>]"],
+                                          err_msg=p)
+            np.testing.assert_array_equal(s, ref[f"{p}[<flat index 1>]"],
+                                          err_msg=p)
+
+
+def test_serve_cli_mesh_matches_one_device(runs):
+    """``launch/serve.py --arch qwen3-4b --smoke --mesh 2x2 --device cpu``
+    prints the lines of ``--mesh 1x1`` and of one device: the same
+    sample of greedy tokens."""
+    outs = [runs[f"serve {m}"] for m in ("2x2", "1x1", "")]
+    samples = [re.findall(r"\[serve\] sample: (\[.*\])", o) for o in outs]
+    assert len(samples[0]) == 1 and samples[0] == samples[1] == samples[2]
+    for o in outs:
+        assert re.search(r"\[serve\] 4 seqs x 32 tokens in ", o), o
 
 
 def _loss_lines(stdout):

@@ -48,9 +48,28 @@ node over NVLink), and fails otherwise. (a), (b), (d) and (e) run on a
     leaf (gathered over its mesh) equals its file leaf for leaf, the int8
     codes and scales included; the files are removed after.
 
-(a)-(e) run with the layers' products split over ``model`` (tensor
-parallelism, ``models/tp.py``) wherever heads, KV heads, d_ff or SSM heads
-divide at tp 2, as they do for every copy here.
+(g) the sharded decode (``lm.decode_step(mesh=)``) on (2, 2) against one
+    card, the 2-layer copies at full width with ``fsdp=True``: qwen3-8b
+    and deepseek-v2-236b (capacity factor E/top_k) in float32 and
+    mamba2-780m in bf16, 4 sequences of 64 prompt tokens then 32 greedy
+    ones against caches of 96 slots; qwen3-4b under ``long_500k`` in
+    float32 at B 1, its 4,096-slot ring seeded with random keys and values,
+    16 steps from position 4,088 across the ring's wrap (the slots cut
+    over data, D over model). The mesh decodes greedily; one card is fed
+    the tokens the mesh fed and its logits of every step are held as (a)
+    and (b) hold a gradient (float32: within 1e-4 of the largest logit;
+    bf16: 5e-2), its greedy token equal to the mesh's wherever its two
+    largest logits lie further apart than the near-tie margin
+    (``TIE_ULPS`` float32 ulps of the largest; in bf16, 4 bf16 ulps);
+(h) qwen3-8b in bf16 at full depth, 32 sequences against caches of 32,768
+    slots seeded with random contents, 16 greedy steps from position
+    32,752, on (2, 2) and on (4, 1): ms a step, tok/s and each card's peak
+    (one card cannot hold the 154.6 GB of caches beside 16.4 GB of
+    weights); no tokens compared.
+
+(a)-(e) and (g) run with the layers' products split over ``model``
+(tensor parallelism, ``models/tp.py``) wherever heads, KV heads, d_ff or
+SSM heads divide at tp 2, as they do for every copy here.
 
 Prints one JSON line with every card's name and power limit.
 
@@ -69,6 +88,11 @@ MESH = (2, 2)
 # (loss relative, gradient share of its leaf's largest) by dtype
 BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 5e-2)}
 TIE_ULPS = 256
+# (g): each step's logits within this share of the largest one-card logit;
+# a greedy token may differ where the one card's two largest logits lie
+# within the margin: (the dtype's mantissa bits, ulps of the largest)
+DECODE_BOUNDS = {"float32": 1e-4, "bfloat16": 5e-2}
+DECODE_TIES = {"float32": (23, TIE_ULPS), "bfloat16": (7, 4)}
 # name: the copy, its tokens, and the kernel entries each rank must launch
 # on the mesh
 CASES = {
@@ -90,6 +114,23 @@ CKPT = {"arch": "qwen3-8b", "layers": 2, "opt_state_dtype": "int8",
         "steps": 3, "every": 2, "batch": 4, "seq": 2048,
         "dir": Path(__file__).resolve().parent.parent / "build"
         / "check_lm_mesh_ckpt"}
+
+
+# (g): the decode copies, (prompt, generated) tokens a sequence, or a
+# seeded ring and the position its steps start from
+DECODE_CASES = {
+    "qwen3-8b-decode": {"arch": "qwen3-8b", "layers": 2, "batch": 4,
+                        "prompt": 64, "gen": 32},
+    "deepseek-v2-236b-decode": {"arch": "deepseek-v2-236b", "layers": 2,
+                                "batch": 4, "prompt": 64, "gen": 32},
+    "mamba2-780m-decode-bf16": {"arch": "mamba2-780m", "layers": 2,
+                                "batch": 4, "prompt": 64, "gen": 32,
+                                "dtype": "bfloat16"},
+    "qwen3-4b-swa4096-decode": {"arch": "qwen3-4b", "shape": "long_500k",
+                                "layers": 2, "batch": 1, "start": 4088,
+                                "steps": 16}}
+SERVE = {"arch": "qwen3-8b", "batch": 32, "slots": 32768, "start": 32752,
+         "steps": 16, "meshes": ((2, 2), (4, 1))}
 
 
 def _copy(case):
@@ -235,6 +276,156 @@ def train_rank(pm, arch, steps, batch, seq):
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
 
 
+def _seeded_cache(cfg, batch, slots, pm, seed):
+    """Caches of ``slots`` positions in the specs of the decode on ``pm``
+    (the rank's shards; every rank of a one-rank mesh holds all), every
+    leaf drawn whole from a seeded generator on the card and cut, so that
+    any mesh holds the same contents."""
+    import torch
+    from repro_torch.launch.dist import shard
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    gen = torch.Generator(device=pm.device).manual_seed(seed)
+    specs = lm.cache_specs(cfg, batch, slots, pm.ax)
+
+    def one(t, spec):
+        full = torch.randn(t.shape, generator=gen, device=pm.device).to(
+            t.dtype)
+        return shard(full, spec, pm.ax, pm.coords).clone()
+    return tree_map(one, lm.cache_shapes(cfg, batch, slots), specs)
+
+
+def _decode_loop(cfg, params, fed, start, cache, gen, slots, mesh=None):
+    """Decode from position ``start``: ``fed`` (B, n) tokens fed first
+    (teacher-forced), then ``gen`` greedy ones. Returns (the (B, n + gen
+    - 1) tokens fed after the first, each step's float32 logits of all
+    rows (gathered over data) on the host, each step's seconds)."""
+    import torch
+    from repro_torch.models import lm
+    B, n = fed.shape
+    tok, toks, logits, secs = fed[:, :1], [], [], []
+    with torch.inference_mode():
+        for i in range(n + gen - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = lm.decode_step(params, tok, start + i, cache, cfg,
+                                       mesh=mesh, seq_len=slots)
+            if mesh is not None and mesh.for_batch(B).split_data:
+                lg = mesh.all_gather(lg, "data", 0)
+            lg = lg[:, 0]
+            nxt = lg.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logits.append(lg.cpu())
+            tok = fed[:, i + 1:i + 2] if i + 1 < n else nxt
+            toks.append(tok)
+    return torch.cat(toks, 1), torch.stack(logits, 1), secs
+
+
+def decode_rank(pm, case):
+    """(g) on one rank: the mesh's greedy decode, then on rank 0 the same
+    tokens through one card, logits held step by step."""
+    import torch
+    from repro_torch.launch import dist
+    from repro_torch.launch.steps import init_cache_shards
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = pm.device
+    cfg = _copy(case)
+    B = case["batch"]
+    ring = "start" in case
+    start = case.get("start", 0)
+    gen_n = case["steps"] - 1 if ring else case["gen"]
+    n = 1 if ring else case["prompt"]
+    slots = start + case["steps"] if ring else n + gen_n
+    g = torch.Generator(device=dev).manual_seed(31)
+    fed = torch.randint(0, cfg.vocab_size, (B, n), generator=g, device=dev,
+                        dtype=torch.int32)
+    g.manual_seed(30)
+    shards = dist.shard_init(lm.model_decls(cfg, pm.ax), g, dev, cfg.pdtype,
+                             pm.ax, pm.coords)
+    cache = (_seeded_cache(cfg, B, slots, pm, 32) if ring
+             else init_cache_shards(cfg, B, slots, pm))
+    t0 = time.perf_counter()
+    toks, mesh_logits, secs = _decode_loop(cfg, shards, fed, start, cache,
+                                           gen_n, slots, pm)
+    out = {**case, "mesh_decode_s": time.perf_counter() - t0,
+           "mesh_ms_per_step": 1e3 * sum(secs[1:]) / max(len(secs) - 1, 1),
+           "mesh_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del shards, cache
+    torch.cuda.empty_cache()
+    if pm.rank != 0:
+        return out
+    g.manual_seed(30)
+    params = init_params(lm.model_decls(cfg), g, dev, cfg.pdtype)
+    cache = (_seeded_cache(cfg, B, slots, _OneCard(dev), 32) if ring
+             else lm.init_cache(cfg, B, slots, device=dev))
+    every = torch.cat([fed[:, :1], toks], 1)
+    _, card_logits, _ = _decode_loop(cfg, params, every, start, cache, 0,
+                                     slots)
+    bound = DECODE_BOUNDS[case.get("dtype", "float32")]
+    top = card_logits.abs().max()
+    err = float((mesh_logits - card_logits).abs().max() / top)
+    two = card_logits.topk(2, dim=-1).values
+    bits, ulps = DECODE_TIES[case.get("dtype", "float32")]
+    ulp = torch.exp2(torch.floor(torch.log2(two[..., 0].abs())) - bits)
+    far = two[..., 0] - two[..., 1] > ulps * ulp
+    same = mesh_logits.argmax(-1) == card_logits.argmax(-1)
+    out.update(logit_share=err, bound=bound, decode_steps=len(secs),
+               tokens_compared=int(far.sum()),
+               tokens_differing_far=int((~same & far).sum()),
+               near_ties=int((~far).sum()),
+               within_bounds=bool(err <= bound and bool(same[far].all())),
+               one_card_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    return out
+
+
+class _OneCard:
+    """The view ``_seeded_cache`` reads of one card: no axis cut."""
+
+    def __init__(self, dev):
+        from repro_torch.models.common import CPU_AXES
+        self.device, self.ax, self.coords = dev, CPU_AXES, {}
+
+
+def serve_rank(pm, arch, batch, slots, start, steps):
+    """(h) on one rank: the full-depth bf16 model's decode steps against
+    seeded caches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist
+    from repro_torch.launch.steps import init_cache_shards
+    from repro_torch.models import lm
+    dev = pm.device
+    cfg = get_config(arch)
+    g = torch.Generator(device=dev).manual_seed(33)
+    params = dist.shard_init(lm.model_decls(cfg, pm.ax), g, dev, cfg.pdtype,
+                             pm.ax, pm.coords)
+    # each rank seeds its own shards (a whole leaf would not fit a card)
+    cache = init_cache_shards(cfg, batch, slots, pm)
+    for t in _leaves(cache):
+        t.normal_(generator=g)
+    fed = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
+                        device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks, logits, secs = _decode_loop(cfg, params, fed, start, cache,
+                                      steps, slots, pm)
+    ms = [1e3 * t for t in secs]
+    return {"rank": pm.rank, "device": str(dev), "coords": pm.coords,
+            "step_ms": ms, "ms_per_step": sum(ms[1:]) / (len(ms) - 1),
+            "tok_per_s": batch * (len(ms) - 1) / sum(secs[1:]),
+            "finite": bool(torch.isfinite(logits).all()),
+            "cache_gb_a_card": sum(t.numel() * t.element_size() for t in
+                                   _leaves(cache)) / 1e9,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def _leaves(tree):
+    from repro_torch.models.common import tree_leaves
+    return [t for _, t in tree_leaves(tree)]
+
+
 def _ckpt_copy():
     from repro_torch.configs import get_config
     return get_config(CKPT["arch"]).replace(
@@ -318,6 +509,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     row = {"cards": smi, "mesh": list(MESH)}
+    bad = []
     build_all()                 # once, before the ranks load the kernels
     for name, case in CASES.items():
         t0 = time.perf_counter()
@@ -334,6 +526,7 @@ def main():
                      and not any(res["rank_tied_tokens"]))
         res["wall_s"] = time.perf_counter() - t0
         row[name] = res
+        bad += [] if res["ok"] else [name]
         print(json.dumps({name: res}), flush=True)
     row["train"] = []
     for mesh in TRAIN["meshes"]:
@@ -344,6 +537,10 @@ def main():
         row["train"].append({**TRAIN, "mesh": list(mesh), "ranks": ranks,
                              "wall_s": time.perf_counter() - t0})
         print(json.dumps({"train": row["train"][-1]}), flush=True)
+    ranks = [r for t in row["train"] for r in t["ranks"]]
+    if not all(math.isfinite(l) for r in ranks for l in r["losses"]) \
+            or any(r["peak_gib"] >= 80 or not r["step_s"] for r in ranks):
+        bad.append("train")
     # (f): save on (2, 2), restore on (4, 1) and on one card
     t0 = time.perf_counter()
     shutil.rmtree(CKPT["dir"], ignore_errors=True)
@@ -362,16 +559,33 @@ def main():
                    and all(r["start"] == resumed for r in restored)
                    and one["start"] == resumed)
     row["checkpoint"] = f
+    bad += [] if f["ok"] else ["checkpoint"]
     print(json.dumps({"checkpoint": f}), flush=True)
+    for name, case in DECODE_CASES.items():
+        # (g): the sharded decode on (2, 2) against one card
+        t0 = time.perf_counter()
+        ranks = dist.launch(decode_rank, MESH, ("data", "model"), case)
+        res = ranks[0]
+        res["rank_mesh_peak_gib"] = [r["mesh_peak_gib"] for r in ranks]
+        res["wall_s"] = time.perf_counter() - t0
+        row[name] = res
+        bad += [] if res["within_bounds"] else [name]
+        print(json.dumps({name: res}), flush=True)
+    row["serve"] = []
+    for mesh in SERVE["meshes"]:
+        # (h): qwen3-8b at full depth against 32,768-slot caches
+        t0 = time.perf_counter()
+        ranks = dist.launch(serve_rank, mesh, ("data", "model"),
+                            SERVE["arch"], SERVE["batch"], SERVE["slots"],
+                            SERVE["start"], SERVE["steps"])
+        row["serve"].append({**SERVE, "mesh": list(mesh), "ranks": ranks,
+                             "wall_s": time.perf_counter() - t0})
+        print(json.dumps({"serve": row["serve"][-1]}), flush=True)
+        if not all(r["finite"] and r["peak_gib"] < 80 for r in ranks):
+            bad.append(f"serve {mesh}")
     print(json.dumps({"lm_mesh_cards": row}), flush=True)
-    bad = [a for a in CASES if not row[a]["ok"]]
-    if not f["ok"]:
-        bad.append("checkpoint")
-    ranks = [r for t in row["train"] for r in t["ranks"]]
-    if bad or not all(math.isfinite(l) for r in ranks for l in r["losses"]) \
-            or max(r["peak_gib"] for r in ranks) >= 80 \
-            or not all(r["step_s"] for r in ranks):
-        sys.exit(f"check_lm_mesh_cards: failed: {bad or 'train'}")
+    if bad:
+        sys.exit(f"check_lm_mesh_cards: failed: {bad}")
 
 
 if __name__ == "__main__":
