@@ -24,6 +24,7 @@ from ..models.common import (CPU_AXES, AxisEnv, ModelConfig,
 from ..models.layers import logits_from_hidden
 from ..optim import (AdamWConfig, adamw_update, cosine_schedule,
                      opt_state_decls)
+from ..tally import span
 
 
 def effective_config(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
@@ -77,8 +78,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             t.requires_grad_(True)
             t.grad = None
         if A == 1:
-            loss = lm.lm_loss(params, batch, cfg, mesh=mesh)
-            loss.backward()
+            with span("rt.train.forward"):
+                loss = lm.lm_loss(params, batch, cfg, mesh=mesh)
+            with span("rt.train.backward"):
+                loss.backward()
             grads = tree_map(_grad_of, params)
         else:
             adt = getattr(torch, cfg.accum_dtype)
@@ -88,16 +91,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             for mb in range(A):
                 part = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[mb]
                         for k, v in batch.items()}
-                l = lm.lm_loss(params, part, cfg, mesh=mesh)
-                l.backward()
+                with span("rt.train.forward"):
+                    l = lm.lm_loss(params, part, cfg, mesh=mesh)
+                with span("rt.train.backward"):
+                    l.backward()
                 for (_, a), t in zip(tree_leaves(acc), leaves):
                     a.add_(_grad_of(t).to(a.dtype))
                     t.grad = None
                 loss = loss + l.detach()
             grads = tree_map(lambda a: a / A, acc)
             loss = loss / A
-        lr_scale = cosine_schedule(opt_state["step"])
-        with torch.no_grad():
+        with span("rt.train.adamw"), torch.no_grad():
+            lr_scale = cosine_schedule(opt_state["step"])
             params, opt_state, gn = adamw_update(params, grads, opt_state,
                                                  opt_cfg, lr_scale,
                                                  specs=specs, mesh=mesh)
@@ -129,6 +134,10 @@ def make_prefill_step(cfg: ModelConfig, device=None, *, mesh=None):
     lm.model_decls(cfg)                      # raises for an unknown family
 
     def prefill_step(params, batch):
+        with span("rt.prefill"):
+            return _prefill(params, batch)
+
+    def _prefill(params, batch):
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         pm = mesh
         if pm is not None:
@@ -140,8 +149,9 @@ def make_prefill_step(cfg: ModelConfig, device=None, *, mesh=None):
         if cfg.family == "encdec":
             kw["enc_out"] = lm.encode(params, batch["src_frames"], cfg, pm)
         h = lm.forward(params, batch["tokens"], cfg, mesh=pm, **kw)
-        return logits_from_hidden(h[:, -1:], lm.unembedding(params, cfg, pm),
-                                  cfg)
+        with span("rt.logits"):
+            return logits_from_hidden(h[:, -1:],
+                                      lm.unembedding(params, cfg, pm), cfg)
 
     return prefill_step
 

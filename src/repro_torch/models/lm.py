@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..tally import span
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -258,12 +259,19 @@ def _blocks(cfg: ModelConfig, x, bodies, mesh=None):
         x = mesh.own(x, "model", -1)
     aux = _zero(x)
     for body in bodies:
-        x, a = (checkpoint(body, x, use_reentrant=False) if remat
-                else body(x))
+        x, a = (checkpoint(_block, body, x, use_reentrant=False) if remat
+                else _block(body, x))
         aux = aux + a
     if cut:
         x = mesh.all_gather(x, "model", x.dim() - 1)
     return x, aux
+
+
+def _block(body, x):
+    """One layer body in its span, inside the checkpoint, so that remat's
+    recompute enters the span again."""
+    with span("rt.block"):
+        return body(x)
 
 
 def _cut_residual(body, mesh):
@@ -334,7 +342,8 @@ def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
     With ``mesh`` the inputs are this rank's batch rows and ``params`` its
     shards (see ``_Leaves``)."""
     pl = _Leaves(params, cfg, mesh)
-    x = embed_apply({"embedding": pl.top("embedding")}, tokens, cfg)
+    with span("rt.embed"):
+        x = embed_apply({"embedding": pl.top("embedding")}, tokens, cfg)
     if cfg.family == "vlm" and prefix_embeds is not None:
         pe = prefix_embeds.to(cfg.cdtype)
         if cfg.frontend_dim:
@@ -389,16 +398,17 @@ def _forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
         x, aux = _blocks(cfg, x, [dec(ls) for ls in pl.layers("dec_layers")],
                          mesh)
     elif fam == "ssm":
+        zero = _zero(x)
         x, aux = _blocks(cfg, x, [
-            (lambda h, ls=ls: (mamba_block(pl.full(*ls), h, cfg, mesh),
-                               _zero(h)))
+            (lambda h, ls=ls: (mamba_block(pl.full(*ls), h, cfg, mesh), zero))
             for ls in pl.layers("layers")], mesh)
     else:
         x, aux = _blocks(cfg, x, [
             (lambda h, ls=ls: attn_block(pl.full(*ls), h, positions, cfg,
                                          mesh=mesh))
             for ls in pl.layers("layers")], mesh)
-    return rms_norm(x, pl.top("final_norm"), cfg.norm_eps), aux
+    with span("rt.final_norm"):
+        return rms_norm(x, pl.top("final_norm"), cfg.norm_eps), aux
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
@@ -495,8 +505,9 @@ def lm_loss(params, batch, cfg: ModelConfig, ax=None, mesh=None):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=h.device)
-    loss_sum, cnt = chunked_softmax_xent(h, labels, mask, params, cfg,
-                                         mesh=mesh)
+    with span("rt.loss"):
+        loss_sum, cnt = chunked_softmax_xent(h, labels, mask, params, cfg,
+                                             mesh=mesh)
     loss = loss_sum / cnt.clamp_min(1.0)
     if cfg.n_experts and cfg.router_aux_weight:
         loss = loss + cfg.router_aux_weight * aux

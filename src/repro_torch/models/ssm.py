@@ -18,6 +18,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ssd as ssd_kernel
+from ..tally import span
 from . import tp
 from .common import CPU_AXES, AxisEnv, ModelConfig, ParamDecl, fsdp_spec
 from .layers import rms_norm, silu
@@ -141,19 +142,24 @@ def mamba_block(p, x, cfg: ModelConfig, *, mesh=None):
     Bsz, L, _ = x.shape
     N, Pd = cfg.ssm_state, cfg.ssm_head_dim
     di = H * Pd
-    h = tp.proj(mesh, x, p["in_proj"].to(cfg.cdtype))
-    z, xBC, dt = _split_in(h, cfg, di)
-    xBC, _ = _causal_conv(xBC, p["conv_w"].to(cfg.cdtype),
-                          p["conv_b"].to(cfg.cdtype))
-    xs = xBC[..., :di].reshape(Bsz, L, H, Pd)
-    Bmat = xBC[..., di:di + N]
-    Cmat = xBC[..., di + N:]
-    dt = dt + p["dt_bias"].to(dt.dtype)
-    y, _ = ssd_chunked(xs, dt, Bmat, Cmat, p["A_log"], p["D"],
-                       chunk=cfg.ssm_chunk)
-    y = _gated_norm(y.reshape(Bsz, L, di), z, p["norm"], cfg, mesh)
-    w = p["out_proj"].to(cfg.cdtype)
-    return y @ w if mesh is None else tp.row_parallel(mesh, y, w)
+    with span("rt.ssm.in_proj"):
+        h = tp.proj(mesh, x, p["in_proj"].to(cfg.cdtype))
+    with span("rt.ssm.conv"):
+        z, xBC, dt = _split_in(h, cfg, di)
+        xBC, _ = _causal_conv(xBC, p["conv_w"].to(cfg.cdtype),
+                              p["conv_b"].to(cfg.cdtype))
+    with span("rt.ssm.scan"):
+        xs = xBC[..., :di].reshape(Bsz, L, H, Pd)
+        Bmat = xBC[..., di:di + N]
+        Cmat = xBC[..., di + N:]
+        dt = dt + p["dt_bias"].to(dt.dtype)
+        y, _ = ssd_chunked(xs, dt, Bmat, Cmat, p["A_log"], p["D"],
+                           chunk=cfg.ssm_chunk)
+    with span("rt.ssm.gated_norm"):
+        y = _gated_norm(y.reshape(Bsz, L, di), z, p["norm"], cfg, mesh)
+    with span("rt.ssm.out_proj"):
+        w = p["out_proj"].to(cfg.cdtype)
+        return y @ w if mesh is None else tp.row_parallel(mesh, y, w)
 
 
 def _decode_on_mesh(p, x, cache, cfg: ModelConfig, mesh, spec):

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.common import ParamDecl, tree_leaves, tree_map
+from ..tally import span
 
 BLOCK = 256
 PIECE = 1 << 26            # elements of a 2-D leaf updated at once
@@ -236,9 +237,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, *,
     keep the global blocks (``_Row``)."""
     step = state["step"] + 1
     dev = step.device
-    gn = global_norm(grads, specs, mesh)
-    clip = torch.clamp(torch.div(torch.tensor(cfg.grad_clip, device=dev),
-                                 gn.clamp_min(1e-12)), max=1.0)
+    with span("rt.adamw.norm"):
+        gn = global_norm(grads, specs, mesh)
+        clip = torch.clamp(torch.div(torch.tensor(cfg.grad_clip, device=dev),
+                                     gn.clamp_min(1e-12)), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - torch.pow(torch.tensor(b1, device=dev), step.float())
     c2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), step.float())

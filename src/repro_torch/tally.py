@@ -1,5 +1,6 @@
 """What a dry run counts, at the calls that do the work: the hand-written
-kernels' calls with their work, and the collectives with their bytes.
+kernels' calls with their work, and the collectives with their bytes;
+and the named spans of the model step that a profiler records.
 
 Off by default: ``kernel`` and ``collective`` return at once unless a
 ``counting()`` block is open, so a real step pays one global read a
@@ -15,11 +16,31 @@ call. ``launch/dryrun.py`` opens one around a step on meta tensors.
     convention (``src/repro/launch/dryrun.py:66-69``): an all-gather
     counts its input (the output over the group), a reduce-scatter its
     input (the output times the group), an all-reduce its operand.
+  * ``span(name)`` marks a layer of the step (the pass, the forward, the
+    backward and AdamW of a train step, a layer body, the parts of the
+    Mamba2 mixer) as a named range while a profiler records, and is a
+    shared no-op otherwise: no switch of its own turns it on. The ranges
+    are CPU events on the profiler's clock, so a trace reduction can
+    give each device operation the span that launched it
+    (``perfbench/spans.py``); a layer body's range sits inside the
+    callable that ``torch.utils.checkpoint`` runs, so remat's recompute
+    enters it again, under the backward. A range is of an op's scope,
+    as ``torch.profiler.record_function``'s user annotations are not: a
+    kernel launched inside it with no ATen op around the launch (the
+    ctypes entries of ``kernels/``) is linked to it, and the profiler
+    draws no device-side copy of it, which a device trace would read as
+    a device operation.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
+SPAN_PREFIX = "rt."
+_NO_SPAN = contextlib.nullcontext()
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -82,3 +103,11 @@ def collective(kind: str, nbytes: int, group, group_size: int) -> None:
         (kind, group), {"count": 0, "bytes": 0, "group_size": group_size})
     e["count"] += 1
     e["bytes"] += int(nbytes)
+
+
+def span(name: str):
+    """A range named ``name`` (which starts with ``SPAN_PREFIX``) while a
+    profiler records; the shared no-op context otherwise."""
+    if torch.autograd._profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
